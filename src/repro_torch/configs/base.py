@@ -1,0 +1,66 @@
+"""Config schema: the model architecture fields the port's decoder-only
+dense family reads, with the reference's names and defaults
+(``repro.configs.base``)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+from repro_torch.engine.spec import QuantSpec
+
+__all__ = ["ModelConfig", "pad_vocab"]
+
+
+def pad_vocab(v: int, multiple: int = 128) -> int:
+    """Round vocab up to a multiple (the reference's padded vocabulary)."""
+    return -(-v // multiple) * multiple
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                    # dense (the only family ported so far)
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int                # raw (pre-padding) vocabulary
+    head_dim: int = 0              # 0 -> d_model // n_heads
+    qkv_bias: bool = False
+    act: str = "silu"
+    gated_mlp: bool = True
+    rope_theta: float = 1e4
+    norm: str = "rms"              # rms | layer
+    tie_embeddings: bool = False
+    logit_softcap: float = 0.0
+    dtype: str = "bfloat16"        # compute dtype
+    param_dtype: str = "float32"
+    # quantized-GEMM configuration; None runs the bf16 matmul path
+    quant: Optional[QuantSpec] = None
+
+    def quant_spec(self) -> Optional[QuantSpec]:
+        """The QuantSpec the model layers execute under (None: bf16)."""
+        if self.quant is not None and self.quant.enabled:
+            return self.quant
+        return None
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        return pad_vocab(self.vocab_size)
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    def param_count(self) -> int:
+        """Parameter count (embeddings + blocks)."""
+        d, hd = self.d_model, self.resolved_head_dim
+        attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) \
+            + self.n_heads * hd * d
+        mlp = (3 if self.gated_mlp else 2) * d * self.d_ff
+        emb = self.padded_vocab * d * (1 if self.tie_embeddings else 2)
+        return self.n_layers * (attn + mlp) + emb

@@ -1,0 +1,14 @@
+"""Hopper kernels for the paper's compute hot spot, and their wrappers.
+
+  bw_gemm  -- the bit-weight decomposed GEMM with digit-plane block
+              skipping (``bw_gemm``) and its fused dequant/bias/activation
+              form (``bw_gemm_fused``): CUDA C++ in ``csrc/bw_gemm.cu``,
+              with plain torch versions beside them
+  ops      -- padding, weight planning, and the quantized-dense entry
+              points configured by a ``QuantSpec``
+  ref      -- plain torch oracles
+  _build   -- nvcc build and ctypes loading of ``csrc/``, on first use
+"""
+from . import ops, ref, bw_gemm
+
+__all__ = ["ops", "ref", "bw_gemm"]

@@ -1,0 +1,42 @@
+"""Plain torch oracles for the bit-weight GEMM kernels.
+
+Integer results are exact (``core.bw_ref.exact_matmul``) and match the
+kernels bit for bit.  Unlike the kernels, these take the multiplicand B in
+the reference's ``[K, N]`` layout.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import encodings as enc
+from repro_torch.core.bw_ref import weighted_plane_sum
+
+__all__ = ["encode_planes_ref", "bw_gemm_ref", "bw_gemm_masked_ref"]
+
+
+def encode_planes_ref(a: torch.Tensor, encoding: str = "ent",
+                      bits: int = 8) -> torch.Tensor:
+    """Encode int A [M, K] into digit planes [BW, M, K] (int8)."""
+    return enc.encode_torch(a, encoding, bits).movedim(-1, 0).contiguous()
+
+
+def bw_gemm_ref(digits: torch.Tensor, b: torch.Tensor,
+                encoding: str = "ent") -> torch.Tensor:
+    """C = sum_bw (digits[bw] @ B) * radix**bw, exact int32.
+
+    digits: int8 [BW, M, K]; b: int8 [K, N].
+    """
+    return weighted_plane_sum(digits, b, enc.digit_weights(encoding))
+
+
+def bw_gemm_masked_ref(digits: torch.Tensor, b: torch.Tensor,
+                       mask: torch.Tensor, block_m: int, block_k: int,
+                       encoding: str = "ent") -> torch.Tensor:
+    """Oracle for the block-skipping kernel: plane blocks whose mask is
+    False count as zero, whatever digits they hold.
+
+    mask: bool [BW, M//block_m, K//block_k].
+    """
+    full = mask.repeat_interleave(block_m, 1).repeat_interleave(block_k, 2)
+    masked = torch.where(full, digits, torch.zeros_like(digits))
+    return bw_gemm_ref(masked, b, encoding)

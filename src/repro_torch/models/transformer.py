@@ -1,0 +1,110 @@
+"""Decoder-only dense transformer LM: init, decode-state init and the
+single-token decode step (``repro.models.transformer``).
+
+The reference stacks its layers on a leading axis for ``jax.lax.scan``;
+the port keeps ``params["blocks"]`` as a list of per-layer dicts and
+loops over it.  The KV caches stay stacked, [L, B, S, n_kv, D].
+"""
+from __future__ import annotations
+
+import torch
+
+from . import attention as A
+from . import layers as L
+
+__all__ = ["lm_init", "lm_decode_step", "init_caches", "norm_init",
+           "norm_apply", "mlp_init", "mlp_apply", "block_init",
+           "block_decode"]
+
+
+def norm_init(cfg, device) -> dict:
+    return (L.rmsnorm_init(cfg.d_model, device) if cfg.norm == "rms"
+            else L.layernorm_init(cfg.d_model, device))
+
+
+def norm_apply(cfg, p, x):
+    return (L.rmsnorm_apply(p, x) if cfg.norm == "rms"
+            else L.layernorm_apply(p, x))
+
+
+def mlp_init(gen, cfg, device) -> dict:
+    p = {"up": L.dense_init(gen, cfg.d_model, cfg.d_ff, device),
+         "down": L.dense_init(gen, cfg.d_ff, cfg.d_model, device)}
+    if cfg.gated_mlp:
+        p["gate"] = L.dense_init(gen, cfg.d_model, cfg.d_ff, device)
+    return p
+
+
+def mlp_apply(p, x, cfg, dtype=torch.bfloat16):
+    if cfg.gated_mlp:
+        up = L.dense_apply(p["up"], x, dtype, cfg.quant_spec())
+        g = L.dense_apply(p["gate"], x, dtype, cfg.quant_spec())
+        h = L.activation(cfg.act)(g) * up
+    else:
+        # activation folded into the dense epilogue (in-kernel on the
+        # fused route)
+        h = L.dense_apply(p["up"], x, dtype, cfg.quant_spec(),
+                          activation=cfg.act)
+    return L.dense_apply(p["down"], h, dtype, cfg.quant_spec())
+
+
+def block_init(gen, cfg, device) -> dict:
+    return {"ln1": norm_init(cfg, device),
+            "attn": A.attn_init(gen, cfg, device),
+            "ln2": norm_init(cfg, device),
+            "mlp": mlp_init(gen, cfg, device)}
+
+
+def block_decode(p, x, cfg, ck, cv, pos, dtype=torch.bfloat16):
+    h, ck, cv = A.attn_decode(p["attn"], norm_apply(cfg, p["ln1"], x), cfg,
+                              ck, cv, pos, dtype)
+    x = x + h
+    h = mlp_apply(p["mlp"], norm_apply(cfg, p["ln2"], x), cfg, dtype)
+    return x + h, ck, cv
+
+
+def lm_init(gen: torch.Generator, cfg, device) -> dict:
+    """Random float32 params from ``gen``, on ``device``."""
+    if cfg.family != "dense":
+        raise ValueError(f"family {cfg.family!r} is not ported yet")
+    params = {
+        "embed": L.embed_init(gen, cfg.padded_vocab, cfg.d_model, device),
+        "blocks": [block_init(gen, cfg, device)
+                   for _ in range(cfg.n_layers)],
+        "final_norm": norm_init(cfg, device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.padded_vocab,
+                                         device)
+    return params
+
+
+def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
+                device="cuda") -> dict:
+    """Stacked per-layer KV caches [L, B, S, n_kv, D]."""
+    one = A.init_kv_cache(cfg, batch, max_len, dtype, device)
+    return {k: v[None].repeat(cfg.n_layers, *([1] * v.dim()))
+            for k, v in one.items()}
+
+
+def _logits(params, x, cfg, dtype):
+    x = norm_apply(cfg, params["final_norm"], x)
+    if cfg.tie_embeddings:
+        logits = L.embed_logits(params["embed"], x, dtype)
+    else:
+        logits = L.dense_apply(params["lm_head"], x, dtype, cfg.quant_spec())
+    if cfg.logit_softcap:
+        c = cfg.logit_softcap
+        logits = c * torch.tanh(logits.to(torch.float32) / c)
+    return logits
+
+
+def lm_decode_step(params, tokens, pos, caches, cfg):
+    """One decode step.  tokens [B, 1]; pos [B]; caches from init_caches,
+    updated in place.  Returns (logits [B, 1, V], caches)."""
+    dtype = getattr(torch, cfg.dtype)
+    x = L.embed_apply(params["embed"], tokens, dtype)
+    for i, layer in enumerate(params["blocks"]):
+        x, _, _ = block_decode(layer, x, cfg, caches["k"][i],
+                               caches["v"][i], pos, dtype)
+    return _logits(params, x, cfg, dtype), caches
