@@ -8,39 +8,58 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. The card: prints ``nvidia-smi``'s name and power limit; no CUDA device
    is a failure.
-2. Build: compiles the kernel source ``src/repro_torch/kernels/csrc/
-   bw_gemm.cu`` with nvcc and prints the build seconds and ptxas' register
-   and spill report of each kernel instantiation.
+2. Build: compiles the kernel sources ``src/repro_torch/kernels/csrc/
+   bw_gemm.cu`` and ``bw_gemm_sparse.cu`` with nvcc, one process each, both
+   started together, and prints the build seconds and ptxas' register and
+   spill report of each kernel instantiation.
 3. Kernels against their plain versions, at the main path's shapes
-   (M, K_pad) in {(2304, 2304), (5760, 2304), (2304, 5888)}, N in {1, 4},
-   on seeded weights planned at planes=3 and masks with a False block over
-   non-zero digits.  bw_gemm (int32) and bw_gemm_fused without an
-   activation must be bit-identical to the plain versions; with an
-   activation within rtol 1e-5, atol 1e-6 (the card's expf/tanhf against
-   torch's own kernels, and gelu's 1 + tanh cancellation for negative
-   inputs).  Each case is timed with CUDA events after a warm-up: the
-   kernel, the plain version, and torch._int_mm on the undecomposed int8
-   weight as a yardstick the port never calls.
+   (M, K_pad) in {(2304, 2304), (5760, 2304), (2304, 5888)}, N in {1, 4}.
+   Dense (B1 bw_gemm_fused, B2 bw_gemm): seeded weights planned at
+   planes=3, masks with a False block over non-zero digits.  Sparse (B3
+   bw_gemm_sparse_fused, B4 bw_gemm_sparse) and pipelined (B5
+   bw_gemm_sparse_fused_pipelined, B6 bw_gemm_sparse_pipelined): seeded
+   weights at planes=2, schedules in both orders built from masks with a
+   False block over non-zero digits, and from a mask with an all-empty row
+   block as well (a sentinel).  Integer results, and fused results
+   without an activation, must be bit-identical to the plain versions;
+   with an activation within rtol 1e-5, atol 1e-6 (the card's expf/tanhf
+   against torch's own kernels, and gelu's 1 + tanh cancellation for
+   negative inputs); B5 on either order must equal B3.  Each kernel is
+   timed L2-cold (``cuda_ms``, the median of 24 calls), with its plain
+   version, and torch._int_mm
+   on the undecomposed int8 weight as a yardstick the port never calls;
+   B3/B4 on m_major schedules, B5/B6 on k_major ones, as they serve.
 4. The path: ServeEngine on the full-width minicpm-2b config (all 40
    layers), params from a seeded torch.Generator, 8 seeded prompts of 8-24
-   tokens, batch 4, 16 new tokens, max_len 64, served through
-   impl=pallas_fused, impl=pallas and the plain impl=planes oracle on the
-   same params.  The three must emit the same tokens, and each kernel's
-   launch count -- zeroed just before each run, read just after -- must
-   be 7 * layers * steps on its own route and 0 elsewhere.  torch.profiler
-   then traces three more decode steps of each route: device time per
-   step, the kernels' share of it, and the device's busy share of the step
-   time measured without the profiler.
+   tokens, batch 4, 16 new tokens, max_len 64, on the same params: at
+   planes=3 through impl=pallas_fused, impl=pallas and the plain
+   impl=planes oracle, and at planes=2 (the fast tier) through
+   impl=pallas_fused, impl=pallas_sparse and impl=pallas_pipelined.  The
+   routes of a plane budget must emit the same tokens, and each kernel's
+   launch count -- every count zeroed just before each run, read just
+   after -- must be 7 * layers * steps on its own route and 0 elsewhere.
+   torch.profiler then traces three more decode steps of each route:
+   device time per step, the kernels' share of it, and the device's busy
+   share of the step time measured without the profiler.
 
 The kernels line gives, per kernel, one layer's seven launches at N=4
 (four 2304x2304, two 5760x2304 and one 2304x5888 products): ``ms`` the
 kernel, ``plain_ms`` the plain version, ``library_ms`` torch._int_mm,
 ``bound_ms`` the larger of the bytes they must move at 3.35 TB/s and their
 int8 operations at 1979 TOP/s (H100 SXM data sheet), counted from this
-run's masks (live plane blocks only) and the operands each timed call
-passes (bw_gemm: digits, activations, mask, int32 output; bw_gemm_fused:
-those, the two scale vectors and a float32 output; it is timed without a
-bias).  The last line is ``{"ok": true, "device": {...}}``.
+run's masks and schedules (live plane blocks only) and the operands each
+timed call passes: the live digits, the activations, the mask (dense) or
+the schedule (sparse, pipelined), the output (int32, or float32 when
+fused) and, when fused, the two scale vectors; fused kernels are timed
+without a bias.  ``launches`` is the count on the kernel's own route:
+pallas_fused at planes=3 for B1, pallas for B2, pallas_sparse for B3 and
+pallas_pipelined for B5.  B4 and B6, the unfused twins, serve no engine;
+after the pallas_sparse and pallas_pipelined runs, every planned weight
+of the served model goes once through planned_dense_apply(fused=False)
+on the engine's sparse route (B4 on its m_major plans, B6 on the k_major
+ones), held bit-identical to the dense route (B2) on the same record, and
+their counts are read from that pass.  The last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -73,20 +92,23 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, iters: int = 24, warmup: int = 3) -> float:
-    """Mean device ms of one fn(i) call, by a CUDA event pair around each.
+    """Median device ms of one fn(i) call, by a CUDA event pair around each.
 
     The host issues a small kernel more slowly than the card runs it, so
     events around a loop of launches would time the host.  Each call is
-    instead queued behind a sleep kernel (four times the host's measured
-    issue time, at <= 1 GHz), so its start event fires only when the card
-    reaches it, and the pair times the device alone.
+    instead queued behind a sleep kernel (eight times the slowest warm-up
+    call's host time, at <= 2 GHz), so its start event fires only when
+    the card reaches it, and the pair times the device alone.  The median
+    of the pairs leaves out a pair whose call the host issued late all
+    the same.
     """
     import torch
+    host_s = 0.0
     for i in range(warmup):
         t0 = time.perf_counter()
         fn(i)
-        host_s = time.perf_counter() - t0
-    cycles = int(4e9 * host_s) + 100_000
+        host_s = max(host_s, time.perf_counter() - t0)
+    cycles = int(16e9 * host_s) + 100_000
     torch.cuda.synchronize()
     pairs = []
     for i in range(iters):
@@ -98,7 +120,8 @@ def cuda_ms(fn, iters: int = 24, warmup: int = 3) -> float:
         end.record()
         pairs.append((start, end))
     torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in pairs) / iters
+    times = sorted(s.elapsed_time(e) for s, e in pairs)
+    return times[len(times) // 2]
 
 
 def cold_copies(t, total_bytes: float = 150e6):
@@ -222,6 +245,138 @@ def kernel_cases(dev, log):
     return per_kernel, err
 
 
+SPARSE = ("bw_gemm_sparse_fused", "bw_gemm_sparse",
+          "bw_gemm_sparse_fused_pipelined", "bw_gemm_sparse_pipelined")
+KERNELS = ("bw_gemm_fused", "bw_gemm") + SPARSE
+
+
+def sparse_cases(dev, log):
+    """Phase 3, B3-B6: against their plain versions and B3, timed."""
+    import torch
+    from repro_torch.core import quant
+    from repro_torch.kernels import bw_gemm as bwk
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    per_kernel = {name: [] for name in SPARSE}
+    err = dict.fromkeys(SPARSE, 0.0)
+    kw = dict(block_m=128, block_k=256)
+
+    def check(name, got, want, exact, what):
+        torch.cuda.synchronize()
+        diff = float((got - want).abs().max())
+        err[name] = max(err[name], diff)
+        ok = torch.equal(got, want) if exact else bool(torch.all(
+            (got - want).abs() <= ACT_ATOL + ACT_RTOL * want.abs()))
+        if not ok:
+            raise AssertionError(f"{name} != {what}: max |diff| {diff}")
+
+    for m, k, per_layer in PATH_SHAPES:
+        w = torch.randn((k, m), generator=gen, device=dev)
+        qw, sw = quant.quantize_to_planes(w, 2, axis=0)
+        planned = ops.plan_operand(qw.t(), "ent", 128, 256)
+        digits = planned.digits
+        m_pad, k_pad = digits.shape[1], digits.shape[2]
+        masked = planned.mask.clone()
+        # a False block over non-zero digits in planes 0 and 1
+        for p in range(2):
+            kk = p % masked.shape[2]
+            if not bool(digits[p, :128, 256 * kk:256 * (kk + 1)].any()):
+                raise AssertionError(f"plane {p} block (0, {kk}) is empty")
+            masked[p, 0, kk] = False
+        sentinel = masked.clone()
+        sentinel[:, 1, :] = False              # row block 1: a sentinel
+        scale = ops._channel_rows(sw.reshape(-1), m, m_pad,
+                                  planned.row_perm)
+        bias = torch.randn((m_pad, 1), generator=gen, device=dev)
+        wq_pad = torch.zeros((m_pad, k_pad), dtype=torch.int8, device=dev)
+        wq_pad[:m, :k] = qw.t()
+        for n in (1, 4):
+            x = torch.randn((n, k), generator=gen, device=dev)
+            qx, sx = quant.quantize_to_planes(x, 2, axis=-1)
+            b = torch.zeros((n, k_pad), dtype=torch.int8, device=dev)
+            b[:, :k] = qx
+            sx_cols = sx.reshape(1, -1).contiguous()
+            scheds = {}
+            for mask_name, mask in (("masked", masked),
+                                    ("sentinel", sentinel)):
+                where = f"M={m_pad} K={k_pad} N={n} {mask_name}"
+                sm, sk = (torch.from_numpy(ops.build_schedule(
+                    mask, 4, order)).to(dev) for order in ops.SCHEDULE_ORDERS)
+                scheds[mask_name] = (sm, sk)
+                want = bwk.bw_gemm_sparse_plain(digits, b, sm, **kw)
+                check("bw_gemm_sparse",
+                      bwk.bw_gemm_sparse(digits, b, sm, **kw), want, True,
+                      f"plain at {where}")
+                for order, sched in zip(ops.SCHEDULE_ORDERS, (sm, sk)):
+                    check("bw_gemm_sparse_pipelined",
+                          bwk.bw_gemm_sparse_pipelined(digits, b, sched,
+                                                       **kw),
+                          want, True, f"plain at {where} {order}")
+                for act in (None, "silu", "gelu", "relu2"):
+                    args = (scale, bias if act else None, sx_cols)
+                    want = bwk.bw_gemm_sparse_fused_plain(
+                        digits, b, sm, *args, activation=act, **kw)
+                    b3 = bwk.bw_gemm_sparse_fused(digits, b, sm, *args,
+                                                  activation=act, **kw)
+                    check("bw_gemm_sparse_fused", b3, want, act is None,
+                          f"plain at {where} act={act}")
+                    for order, sched in zip(ops.SCHEDULE_ORDERS, (sm, sk)):
+                        b5 = bwk.bw_gemm_sparse_fused_pipelined(
+                            digits, b, sched, *args, activation=act, **kw)
+                        check("bw_gemm_sparse_fused_pipelined", b5, want,
+                              act is None, f"plain at {where} {order} "
+                              f"act={act}")
+                        torch.cuda.synchronize()
+                        if not torch.equal(b5, b3):
+                            raise AssertionError(
+                                f"bw_gemm_sparse_fused_pipelined on {order}"
+                                f" != bw_gemm_sparse_fused at {where} "
+                                f"act={act}")
+
+            # timing, L2-cold, on the masked case's schedules
+            sm, sk = scheds["masked"]
+            b8 = torch.zeros((8, k_pad), dtype=torch.int8, device=dev)
+            b8[:n] = b
+            wq_cold = cold_copies(wq_pad)
+            lib_ms = cuda_ms(lambda i: torch._int_mm(
+                wq_cold[i % len(wq_cold)], b8.t()))
+            del wq_cold
+            d_cold = cold_copies(digits)
+            nnz = int(masked.sum())
+            live_bytes = nnz * 128 * 256
+            for name, sched in (("bw_gemm_sparse_fused", sm),
+                                ("bw_gemm_sparse", sm),
+                                ("bw_gemm_sparse_fused_pipelined", sk),
+                                ("bw_gemm_sparse_pipelined", sk)):
+                fused = "fused" in name
+                args = (scale, None, sx_cols) if fused else ()
+                kern, plain = getattr(bwk, name), getattr(bwk, name + "_plain")
+                # bytes the call moves: live digits, activations, schedule,
+                # the output, and the two scale vectors when fused
+                moved = (live_bytes + b.numel() + 4 * sched.numel()
+                         + 4 * m_pad * n + (4 * (m_pad + n) if fused else 0))
+                row = {"m": m_pad, "k_pad": k_pad, "n": n,
+                       "per_layer": per_layer,
+                       "ms": cuda_ms(lambda i: kern(
+                           d_cold[i % len(d_cold)], b, sched, *args, **kw)),
+                       "plain_ms": cuda_ms(lambda i: plain(
+                           digits, b, sched, *args, **kw), 5, 1),
+                       "library_ms": lib_ms, "bytes": moved,
+                       "ops": 2 * live_bytes * n, "live_blocks": nnz,
+                       "steps": int(sched.shape[0]),
+                       "blocks": masked.numel()}
+                row["bound_ms"] = 1e3 * max(row["bytes"] / HBM_BYTES_PER_S,
+                                            row["ops"] / INT8_OPS_PER_S)
+                per_kernel[name].append(row)
+                log(f"  {name:30s} M={m_pad:5d} K={k_pad:5d} N={n}  kernel "
+                    f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
+                    f"_int_mm {lib_ms:.4f} ms  bound "
+                    f"{row['bound_ms']:.4f} ms")
+            del d_cold
+    return per_kernel, err
+
+
 def profile_steps(eng, dev, steps: int = 3) -> dict:
     """torch.profiler over ``steps`` decode steps of a served engine: the
     device time per step (kernel events only; the CPU ops that launched
@@ -251,7 +406,9 @@ def profile_steps(eng, dev, steps: int = 3) -> dict:
                if str(getattr(e, "device_type", "")).endswith("CUDA")]
     total_us = sum(dev_us(e) for e in kernels)
     kern_us = {k: sum(dev_us(e) for e in kernels if k in e.key)
-               for k in ("bw_gemm_fused_kernel", "bw_gemm_i32_kernel")}
+               for k in ("bw_gemm_fused_kernel", "bw_gemm_i32_kernel",
+                         "sparse_fused_kernel", "sparse_i32_kernel",
+                         "pipelined_kernel", "epilogue_kernel")}
     top = sorted(kernels, key=dev_us, reverse=True)[:12]
     return {"steps": steps,
             "device_ms_per_step": total_us / 1e3 / steps,
@@ -276,11 +433,10 @@ def serve(cfg, params, spec_text, prompts, dev):
     setup_s = time.perf_counter() - t0
     reqs = [ServeRequest(i, list(p), 16) for i, p in enumerate(prompts)]
     torch.cuda.reset_peak_memory_stats()
-    bwk.bw_gemm.launches = 0
-    bwk.bw_gemm_fused.launches = 0
+    for name in KERNELS:
+        getattr(bwk, name).launches = 0
     stats = eng.run(reqs)
-    launches = {"bw_gemm": bwk.bw_gemm.launches,
-                "bw_gemm_fused": bwk.bw_gemm_fused.launches}
+    launches = {name: getattr(bwk, name).launches for name in KERNELS}
     stats.update(setup_s=setup_s, launches=launches,
                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                  ms_per_step=1e3 * stats["wall_s"] / stats["engine_steps"],
@@ -302,9 +458,56 @@ def serve(cfg, params, spec_text, prompts, dev):
     except (RuntimeError, AttributeError) as e:   # tracer unavailable
         stats["profile"] = {"error": repr(e)}
     tokens = [r.out for r in reqs]
+    if spec_text.endswith(("pallas_sparse", "pallas_pipelined")):
+        stats["unfused"] = unfused_routes(eng, dev)
     del eng, logits
     torch.cuda.empty_cache()
     return tokens, stats
+
+
+def unfused_routes(eng, dev) -> dict:
+    """B4 / B6, the unfused twins, on a served engine's planned weights:
+    every weight's record through planned_dense_apply(fused=False) on the
+    engine's sparse route (dispatch 'sparse' on m_major plans, 'pipelined'
+    on k_major ones), held bit-identical to the dense route (B2) on the
+    same record and batch-4 activations.  Returns the launch counts."""
+    import torch
+    from repro_torch.kernels import bw_gemm as bwk
+    from repro_torch.kernels import ops
+
+    order = "k_major" if eng.spec.impl == "pallas_pipelined" else "m_major"
+    route = "pipelined" if order == "k_major" else "sparse"
+    gen = torch.Generator(device=dev).manual_seed(99)
+
+    # records is passed down, not closed over: the recursive closure's
+    # reference cycle must not keep the engine's plans alive
+    def walk(node, records):
+        if isinstance(node, list):
+            for v in node:
+                walk(v, records)
+        elif isinstance(node, dict):
+            if "w_plan" in node:
+                records.append((node["w_plan"], node["w"].shape))
+            for key, v in node.items():
+                if key != "w_plan":
+                    walk(v, records)
+        return records
+    records = walk(eng.params, [])
+    outs = []
+    for name in KERNELS:
+        getattr(bwk, name).launches = 0
+    for plan, (k, n_out) in records:
+        x = torch.randn((4, k), generator=gen, device=dev)
+        outs.append((plan, x, n_out, ops.planned_dense_apply(
+            plan, x, eng.spec, n_out, fused=False, dispatch=route,
+            order=order)))
+    launches = {name: getattr(bwk, name).launches for name in KERNELS}
+    for plan, x, n_out, got in outs:
+        want = ops.planned_dense_apply(plan, x, eng.spec, n_out,
+                                       fused=False, dispatch="dense")
+        if not torch.equal(got, want):
+            raise AssertionError(f"unfused {route} route != dense route")
+    return {"route": route, "weights": len(records), "launches": launches}
 
 
 def main() -> int:
@@ -323,11 +526,12 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    # -- 2. build ------------------------------------------------------------
+    # -- 2. build: one nvcc per source, all started together ----------------
+    t0 = time.perf_counter()
+    _build.load_all()
+    log(f"[build] {', '.join(_build.SOURCES)}: "
+        f"{time.perf_counter() - t0:.1f} s")
     for name in _build.SOURCES:
-        t0 = time.perf_counter()
-        _build.load(name)
-        log(f"[build] {name}: {time.perf_counter() - t0:.1f} s")
         for line in _build.BUILD_LOGS.get(name, "").splitlines():
             if any(w in line for w in ("Function properties", "registers",
                                        "spill")):
@@ -336,6 +540,9 @@ def main() -> int:
     # -- 3. kernels against their plain versions -----------------------------
     log("[kernels] bit-exact and timed against the plain versions")
     per_kernel, err = kernel_cases(dev, log)
+    sparse_rows, sparse_err = sparse_cases(dev, log)
+    per_kernel.update(sparse_rows)
+    err.update(sparse_err)
 
     # -- 4. the path at full width -------------------------------------------
     cfg = CONFIG
@@ -351,42 +558,69 @@ def main() -> int:
         f"d_ff {cfg.d_ff}, vocab {cfg.padded_vocab}; params "
         f"{cfg.param_count() / 1e9:.3f} B in "
         f"{time.perf_counter() - t0:.1f} s")
-    base = "planes=3,encoding=ent,act_quant=per_token,impl="
+    # (plane budget, impl) -> the kernel its run must launch, or None
+    routes = {(3, "pallas_fused"): "bw_gemm_fused", (3, "pallas"): "bw_gemm",
+              (3, "planes"): None, (2, "pallas_fused"): "bw_gemm_fused",
+              (2, "pallas_sparse"): "bw_gemm_sparse_fused",
+              (2, "pallas_pipelined"): "bw_gemm_sparse_fused_pipelined"}
     runs = {}
-    for impl in ("pallas_fused", "pallas", "planes"):
-        tokens, stats = serve(cfg, params, base + impl, prompts, dev)
-        runs[impl] = {"tokens": tokens, "stats": stats}
-        log(f"[path] impl={impl}: {stats['generated_tokens']} tokens in "
+    for (planes, impl), kern in routes.items():
+        spec = f"planes={planes},encoding=ent,act_quant=per_token,impl={impl}"
+        tokens, stats = serve(cfg, params, spec, prompts, dev)
+        runs[planes, impl] = {"tokens": tokens, "stats": stats}
+        log(f"[path] planes={planes} impl={impl}: "
+            f"{stats['generated_tokens']} tokens in "
             f"{stats['engine_steps']} steps, {stats['tok_per_s']:.2f} "
             f"tok/s, {stats['ms_per_step']:.3f} ms/step, peak "
             f"{stats['peak_mem_gb']:.2f} GB, set-up {stats['setup_s']:.1f} s,"
             f" launches {stats['launches']}  ({kind})")
-        log(f"[profile] impl={impl}: {json.dumps(stats['profile'])}")
-    for impl in ("pallas", "planes"):
-        if runs[impl]["tokens"] != runs["pallas_fused"]["tokens"]:
-            raise AssertionError(f"impl={impl} tokens differ from "
-                                 f"impl=pallas_fused")
-    if any(len(t) != 16 for t in runs["planes"]["tokens"]):
-        raise AssertionError("a request did not generate 16 tokens")
-    for impl, kern in (("pallas_fused", "bw_gemm_fused"),
-                       ("pallas", "bw_gemm")):
-        st = runs[impl]["stats"]
-        want = 7 * cfg.n_layers * st["engine_steps"]
-        got = st["launches"]
-        other = "bw_gemm" if kern == "bw_gemm_fused" else "bw_gemm_fused"
-        if got[kern] != want or got[other] != 0:
-            raise AssertionError(f"impl={impl}: launches {got}, expected "
-                                 f"{kern}={want} and {other}=0")
-    if any(runs["planes"]["stats"]["launches"].values()):
-        raise AssertionError("the plain oracle route launched a kernel")
-    log("[path] pallas_fused, pallas and planes emit the same tokens")
+        log(f"[profile] planes={planes} impl={impl}: "
+            f"{json.dumps(stats['profile'])}")
+        if "unfused" in stats:
+            log(f"[path] planes={planes} impl={impl} unfused route: "
+                f"{json.dumps(stats['unfused'])}")
+        want = 7 * cfg.n_layers * stats["engine_steps"]
+        expect = {name: want if name == kern else 0 for name in KERNELS}
+        if stats["launches"] != expect:
+            raise AssertionError(f"planes={planes} impl={impl}: launches "
+                                 f"{stats['launches']}, expected {expect}")
+        if any(len(t) != 16 for t in tokens):
+            raise AssertionError(f"planes={planes} impl={impl}: a request "
+                                 f"did not generate 16 tokens")
+    for planes, impl in routes:
+        base = runs[planes, "pallas_fused"]["tokens"]
+        if runs[planes, impl]["tokens"] != base:
+            raise AssertionError(f"planes={planes} impl={impl} tokens "
+                                 f"differ from impl=pallas_fused")
+    for impl, kern in (("pallas_sparse", "bw_gemm_sparse"),
+                       ("pallas_pipelined", "bw_gemm_sparse_pipelined")):
+        unfused = runs[2, impl]["stats"]["unfused"]
+        expect = {name: unfused["weights"] if name == kern else 0
+                  for name in KERNELS}
+        if unfused["launches"] != expect:
+            raise AssertionError(f"{impl} unfused route: launches "
+                                 f"{unfused['launches']}, expected {expect}")
+    log("[path] planes=3: pallas_fused, pallas and planes emit the same "
+        "tokens; planes=2: pallas_fused, pallas_sparse and pallas_pipelined"
+        " emit the same tokens")
 
     # -- the kernels line ----------------------------------------------------
     replaces = {"bw_gemm_fused": "src/repro/kernels/bw_gemm.py:215",
-                "bw_gemm": "src/repro/kernels/bw_gemm.py:140"}
-    route = {"bw_gemm_fused": "pallas_fused", "bw_gemm": "pallas"}
+                "bw_gemm": "src/repro/kernels/bw_gemm.py:140",
+                "bw_gemm_sparse_fused": "src/repro/kernels/bw_gemm.py:393",
+                "bw_gemm_sparse": "src/repro/kernels/bw_gemm.py:316",
+                "bw_gemm_sparse_fused_pipelined":
+                    "src/repro/kernels/bw_gemm.py:678",
+                "bw_gemm_sparse_pipelined":
+                    "src/repro/kernels/bw_gemm.py:583"}
+    launches = {"bw_gemm_fused": runs[3, "pallas_fused"],
+                "bw_gemm": runs[3, "pallas"],
+                "bw_gemm_sparse_fused": runs[2, "pallas_sparse"],
+                "bw_gemm_sparse_fused_pipelined": runs[2, "pallas_pipelined"]}
+    unfused = {"bw_gemm_sparse": runs[2, "pallas_sparse"],
+               "bw_gemm_sparse_pipelined": runs[2, "pallas_pipelined"]}
     kernels = []
-    for name in ("bw_gemm_fused", "bw_gemm"):
+    for name in KERNELS:
         rows = [r for r in per_kernel[name] if r["n"] == 4]
 
         def layer_sum(key, rows=rows):
@@ -394,15 +628,18 @@ def main() -> int:
             if any(v is None for v in vals):
                 return None
             return sum(v * r["per_layer"] for v, r in zip(vals, rows))
-        layer_bytes = layer_sum("bytes")
-        layer_ops = layer_sum("ops")
-        bytes_ms = 1e3 * layer_bytes / HBM_BYTES_PER_S
-        ops_ms = 1e3 * layer_ops / INT8_OPS_PER_S
+        bytes_ms = 1e3 * layer_sum("bytes") / HBM_BYTES_PER_S
+        ops_ms = 1e3 * layer_sum("ops") / INT8_OPS_PER_S
+        if name in launches:
+            count = launches[name]["stats"]["launches"][name]
+        else:
+            count = unfused[name]["stats"]["unfused"]["launches"][name]
+        source = "bw_gemm.cu" if name in ("bw_gemm_fused", "bw_gemm") \
+            else "bw_gemm_sparse.cu"
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/bw_gemm.cu",
-            "replaces": replaces[name],
-            "launches": runs[route[name]]["stats"]["launches"][name],
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": replaces[name], "launches": count,
             "max_abs_err": err[name],
             "ms": layer_sum("ms"), "plain_ms": layer_sum("plain_ms"),
             "bound_ms": max(bytes_ms, ops_ms),

@@ -19,6 +19,12 @@ Registered engines:
                     dequant/bias/activation epilogue in torch.
     pallas_fused -- bw_gemm with the epilogue fused into the kernel (the
                     serving path).
+    pallas_sparse    -- pallas_fused through planned_dense_apply(
+                    dispatch='auto'): the sparse kernel walking the plan's
+                    m_major schedule when its density is at most
+                    ops.SPARSE_DENSITY_THRESHOLD, else the dense kernel.
+    pallas_pipelined -- the same on k_major schedules, through the
+                    pipelined kernel.
 
 The names are the reference's, so a spec string selects the same strategy
 in both packages.  The plain engines are forward-only oracles; products
@@ -134,6 +140,8 @@ class PallasEngine(GemmEngine):
     name = "pallas"
     uses_plans = True
     fused = False
+    dispatch = "dense"           # kernel route (ops.DISPATCHES)
+    order = "m_major"            # schedule order the plans carry
 
     def apply(self, plan_or_w, x, spec, *, n_out=None, bias=None,
               activation=None, out_dtype=torch.float32):
@@ -144,10 +152,12 @@ class PallasEngine(GemmEngine):
                                  "(the record only carries padded shapes)")
             return ops.planned_dense_apply(
                 plan_or_w, x, spec, n_out, bias=bias, activation=activation,
-                out_dtype=out_dtype, fused=self.fused)
+                out_dtype=out_dtype, fused=self.fused,
+                dispatch=self.dispatch, order=self.order)
         return ops.quantized_dense(
             x, plan_or_w, spec, bias=bias, activation=activation,
-            out_dtype=out_dtype, fused=self.fused)
+            out_dtype=out_dtype, fused=self.fused, dispatch=self.dispatch,
+            order=self.order)
 
 
 class PallasFusedEngine(PallasEngine):
@@ -158,6 +168,24 @@ class PallasFusedEngine(PallasEngine):
     fused = True
 
 
+class PallasSparseEngine(PallasFusedEngine):
+    """Density-dispatched sparse route: B3 on m_major schedules when the
+    plan's density proxy is at most ops.SPARSE_DENSITY_THRESHOLD, the
+    dense fused kernel otherwise."""
+
+    name = "pallas_sparse"
+    dispatch = "auto"
+
+
+class PallasPipelinedEngine(PallasSparseEngine):
+    """pallas_sparse on k_major schedules (planned so by plan_params): the
+    pipelined kernel B5, or the dense fused kernel above the threshold."""
+
+    name = "pallas_pipelined"
+    order = "k_major"
+
+
 for _engine in (RefEngine(), PlanesEngine(), Int8Engine(), PallasEngine(),
-                PallasFusedEngine()):
+                PallasFusedEngine(), PallasSparseEngine(),
+                PallasPipelinedEngine()):
     register(_engine)

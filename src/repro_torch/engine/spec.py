@@ -20,10 +20,8 @@ from repro_torch.core import encodings as enc
 
 __all__ = ["QuantSpec", "IMPLS", "ACT_QUANT_POLICIES"]
 
-# Engine names a spec may carry.  The port registers ref, planes, int8,
-# pallas and pallas_fused (repro_torch.engine.registry); the sparse and
-# pipelined names parse, so spec strings stay interchangeable with the
-# reference, and fail at engine lookup until their kernels are ported.
+# Engine names a spec may carry, the reference's; each is registered in
+# repro_torch.engine.registry.
 IMPLS = ("ref", "planes", "int8", "pallas", "pallas_fused", "pallas_sparse",
          "pallas_pipelined")
 

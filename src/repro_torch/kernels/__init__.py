@@ -2,10 +2,14 @@
 
   bw_gemm  -- the bit-weight decomposed GEMM with digit-plane block
               skipping (``bw_gemm``) and its fused dequant/bias/activation
-              form (``bw_gemm_fused``): CUDA C++ in ``csrc/bw_gemm.cu``,
-              with plain torch versions beside them
-  ops      -- padding, weight planning, and the quantized-dense entry
-              points configured by a ``QuantSpec``
+              form (``bw_gemm_fused``): CUDA C++ in ``csrc/bw_gemm.cu``;
+              the same over a compacted block schedule, sparse
+              (``bw_gemm_sparse[_fused]``) and pipelined
+              (``bw_gemm_sparse[_fused]_pipelined``): ``csrc/
+              bw_gemm_sparse.cu``; plain torch versions beside them all
+  ops      -- padding, weight planning and block schedules, dispatch, and
+              the quantized-dense entry points configured by a
+              ``QuantSpec``
   ref      -- plain torch oracles
   _build   -- nvcc build and ctypes loading of ``csrc/``, on first use
 """

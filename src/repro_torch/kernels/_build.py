@@ -3,9 +3,12 @@
 Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes``.  The
 library lands in ``_build/`` beside this file (listed in ``.gitignore``),
-named by the hash of its source and flags, so an edited source is rebuilt
-at its next use and an unchanged one is loaded as it is.  Nothing is built
-when the module is imported: :func:`load` builds on first use.
+named by the hash of its source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source is rebuilt at its next use and an
+unchanged one is loaded as it is.  Nothing is built when the module is
+imported: :func:`load` builds one library on first use, :func:`load_all`
+builds every library at once, one ``nvcc`` per source, all started
+together.
 """
 from __future__ import annotations
 
@@ -16,16 +19,18 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["SOURCES", "NVCC_FLAGS", "BUILD_LOGS", "load", "nvcc_path"]
+__all__ = ["SOURCES", "NVCC_FLAGS", "BUILD_LOGS", "load", "load_all",
+           "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 # library name -> source file under csrc/
-SOURCES = {"bw_gemm": "bw_gemm.cu"}
+SOURCES = {"bw_gemm": "bw_gemm.cu", "bw_gemm_sparse": "bw_gemm_sparse.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -34,7 +39,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # build this process ran; absent when the library was already built
 BUILD_LOGS: Dict[str, str] = {}
 
-_LOCK = threading.Lock()
+_LOCKS = {name: threading.Lock() for name in SOURCES}
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
 
@@ -53,13 +58,15 @@ def nvcc_path() -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library ``name``, built first if its .so is missing."""
-    with _LOCK:
+    with _LOCKS[name]:
         lib = _LOADED.get(name)
         if lib is not None:
             return lib
         src = CSRC / SOURCES[name]
-        digest = hashlib.sha256(src.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        digest = hashlib.sha256(b"".join(
+            [src.read_bytes()]
+            + [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
+            + [" ".join(NVCC_FLAGS).encode()])).hexdigest()
         path = BUILD_DIR / f"lib{name}-{digest[:16]}.so"
         if not path.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -77,3 +84,9 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _LOADED[name] = lib
         return lib
+
+
+def load_all() -> Dict[str, ctypes.CDLL]:
+    """Every library of SOURCES, the missing ones built in parallel."""
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        return dict(zip(SOURCES, pool.map(load, SOURCES)))

@@ -1,11 +1,18 @@
 """Bit-weight decomposed INT8 GEMM with digit-plane block skipping: the
-Hopper kernels (``csrc/bw_gemm.cu``) and their plain torch versions.
+Hopper kernels (``csrc/bw_gemm.cu``, ``csrc/bw_gemm_sparse.cu``) and their
+plain torch versions.
 
 The multiplicand A is pre-encoded into BW digit planes (radix 4: digits in
 {-2..2}), and a per-(plane, m-block, k-block) occupancy mask lets the
 kernel skip a plane block outright:
 
     C = sum_bw (masked digits[bw] @ B) * radix**bw      (paper Eq. (4)/(5))
+
+The dense kernels (``bw_gemm``, ``bw_gemm_fused``) read the mask.  The
+sparse kernels (``bw_gemm_sparse[_fused]``, m_major schedules) and the
+pipelined ones (``bw_gemm_sparse[_fused]_pipelined``, either order) read
+a compacted block schedule instead (SCHED_COLS): one entry per live plane
+block, whose weight is the plane's radix**plane.
 
 Layout.  ``digits`` is int8 ``[BW, M, K]`` and K-contiguous; ``b`` holds
 the activation rows as int8 ``[N, K]`` -- the transpose of the
@@ -24,10 +31,15 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.bw_ref import weighted_plane_sum
+from repro_torch.core.bw_ref import exact_matmul, weighted_plane_sum
 
 __all__ = ["bw_gemm", "bw_gemm_fused", "bw_gemm_plain",
-           "bw_gemm_fused_plain", "EPILOGUE_ACTIVATIONS"]
+           "bw_gemm_fused_plain", "bw_gemm_sparse", "bw_gemm_sparse_fused",
+           "bw_gemm_sparse_pipelined", "bw_gemm_sparse_fused_pipelined",
+           "bw_gemm_sparse_plain", "bw_gemm_sparse_fused_plain",
+           "bw_gemm_sparse_pipelined_plain",
+           "bw_gemm_sparse_fused_pipelined_plain", "EPILOGUE_ACTIVATIONS",
+           "SCHED_COLS"]
 
 # Activations the fused epilogue can apply on the dequantized accumulator,
 # in the reference's formulas.  silu is jax.nn.silu's x * sigmoid(x) with
@@ -48,17 +60,29 @@ _ACT_CODES = {None: 0, "silu": 1, "gelu": 2, "relu2": 3}
 # the plan's block_m so a CTA never straddles two mask rows
 ROW_TILE = 8
 
+# Column layout of the compacted block schedule (int32 [L, 9]), the
+# reference's: one entry per live (plane, m-block, k-block) of the
+# occupancy mask, plus one zero-weight sentinel per empty m-block row so
+# its output rows are still written.  WEIGHT is the deferred-shift plane
+# scale radix**plane (0 for sentinels and padding).  FIRST / LAST flag
+# each row's first and last entry, and D_SLOT / B_SLOT / B_FETCH the TPU
+# kernels' double-buffer slots and activation-block reuse; the Hopper
+# kernels read the first four columns.  The sparse kernels take a schedule
+# with at least six columns, the pipelined ones exactly nine.
+SCHED_COLS = {"plane": 0, "row": 1, "kblk": 2, "weight": 3,
+              "first": 4, "last": 5, "d_slot": 6, "b_slot": 7, "b_fetch": 8}
+(_PLANE, _ROW, _KBLK, _WEIGHT, _FIRST, _LAST,
+ _DSLOT, _BSLOT, _BFETCH) = range(9)
+
 
 # ---------------------------------------------------------------------------
 # Validation shared by the kernels and the plain versions
 # ---------------------------------------------------------------------------
 
-def _check_operands(fn: str, digits, b, mask, block_m: int, block_k: int):
-    if digits.dim() != 3 or b.dim() != 2 or mask.dim() != 3:
-        raise ValueError(f"{fn}: expected digits [BW, M, K], b [N, K] and "
-                         f"mask [BW, M/block_m, K/block_k]; got "
-                         f"{tuple(digits.shape)}, {tuple(b.shape)}, "
-                         f"{tuple(mask.shape)}")
+def _check_dims(fn: str, digits, b, block_m: int, block_k: int):
+    if digits.dim() != 3 or b.dim() != 2:
+        raise ValueError(f"{fn}: expected digits [BW, M, K] and b [N, K]; "
+                         f"got {tuple(digits.shape)}, {tuple(b.shape)}")
     bw_n, m, k = digits.shape
     n, k2 = b.shape
     if k != k2:
@@ -71,15 +95,58 @@ def _check_operands(fn: str, digits, b, mask, block_m: int, block_k: int):
             raise ValueError(
                 f"{fn}: {name}={dim} is not a multiple of {bname}={blk}; "
                 f"pad the operands first (the ops wrappers do this)")
+    for t, name in ((digits, "digits"), (b, "b")):
+        if t.dtype != torch.int8:
+            raise TypeError(f"{fn}: {name} must be torch.int8, got "
+                            f"{t.dtype}")
+
+
+def _check_operands(fn: str, digits, b, mask, block_m: int, block_k: int):
+    if mask.dim() != 3:
+        raise ValueError(f"{fn}: expected mask [BW, M/block_m, K/block_k]; "
+                         f"got {tuple(mask.shape)}")
+    _check_dims(fn, digits, b, block_m, block_k)
+    bw_n, m, k = digits.shape
     if tuple(mask.shape) != (bw_n, m // block_m, k // block_k):
         raise ValueError(
             f"{fn}: mask shape {tuple(mask.shape)} != expected "
             f"({bw_n}, {m // block_m}, {k // block_k}) = "
             f"[BW, M/block_m, K/block_k]")
-    for t, name, dtype in ((digits, "digits", torch.int8),
-                           (b, "b", torch.int8), (mask, "mask", torch.bool)):
-        if t.dtype != dtype:
-            raise TypeError(f"{fn}: {name} must be {dtype}, got {t.dtype}")
+    if mask.dtype != torch.bool:
+        raise TypeError(f"{fn}: mask must be torch.bool, got {mask.dtype}")
+
+
+def _check_schedule(fn: str, schedule, *, annotated: bool = False):
+    """A sparse kernel's schedule: int32 [L, >= 6], or exactly [L, 9]
+    (every SCHED_COLS column) when ``annotated``."""
+    want = len(SCHED_COLS) if annotated else 6
+    ok = (schedule.dim() == 2
+          and (schedule.shape[1] == want if annotated
+               else schedule.shape[1] >= want))
+    if not ok:
+        rel = "exactly" if annotated else "at least"
+        raise ValueError(
+            f"{fn}: schedule must be a 2-D int array with {rel} {want} "
+            f"columns (SCHED_COLS), got shape {tuple(schedule.shape)}")
+    if schedule.dtype != torch.int32:
+        raise TypeError(f"{fn}: schedule must be torch.int32, got "
+                        f"{schedule.dtype}")
+
+
+def _check_devices(fn: str, *tensors):
+    dev = tensors[0].device
+    for t in tensors:
+        if t is not None and t.device != dev:
+            raise ValueError(f"{fn}: all operands must be on {dev}, got "
+                             f"one on {t.device}")
+
+
+def _check_sparse(fn: str, digits, b, schedule, block_m: int, block_k: int,
+                  annotated: bool, *vectors):
+    """Every check of a sparse or pipelined call, on any device."""
+    _check_dims(fn, digits, b, block_m, block_k)
+    _check_schedule(fn, schedule, annotated=annotated)
+    _check_devices(fn, digits, b, schedule, *vectors)
 
 
 def _check_epilogue(fn: str, activation, scale, bias, scale_n,
@@ -140,6 +207,83 @@ def bw_gemm_fused_plain(digits, b, mask, scale, bias=None, scale_n=None, *,
                      None if bias is None else bias.to(torch.float32),
                      None if scale_n is None else scale_n.to(torch.float32),
                      activation)
+
+
+def _schedule_sum(digits, b, schedule, block_m: int,
+                  block_k: int) -> torch.Tensor:
+    """sum over the schedule's entries with weight != 0 of
+    digits[plane, row block, kblk] @ b[:, kblk].T * weight: exact int32
+    [M, N].  Sentinel and padding entries (weight 0) add nothing; the
+    entries' order does not matter."""
+    bw_n, m, k = digits.shape
+    n = b.shape[0]
+    mb, kb = m // block_m, k // block_k
+    s = schedule.long()
+    s = s[s[:, _WEIGHT] != 0]
+    acc = torch.zeros((mb, block_m, n), dtype=torch.int64,
+                      device=digits.device)
+    if s.shape[0]:
+        blocks = digits.reshape(bw_n, mb, block_m, kb, block_k).permute(
+            0, 1, 3, 2, 4)[s[:, _PLANE], s[:, _ROW], s[:, _KBLK]]
+        cols = b.reshape(n, kb, block_k).permute(1, 2, 0)[s[:, _KBLK]]
+        pp = exact_matmul(blocks, cols)         # [E, block_m, N]
+        acc.index_add_(0, s[:, _ROW], pp * s[:, _WEIGHT, None, None])
+    return acc.reshape(m, n).to(torch.int32)
+
+
+def _sparse_plain(fn: str, annotated: bool, digits, b, schedule, *,
+                  block_m: int, block_k: int) -> torch.Tensor:
+    _check_sparse(fn, digits, b, schedule, block_m, block_k, annotated)
+    return _schedule_sum(digits, b, schedule, block_m, block_k)
+
+
+def _sparse_fused_plain(fn: str, annotated: bool, digits, b, schedule,
+                        scale, bias=None, scale_n=None, *, block_m: int,
+                        block_k: int, activation=None) -> torch.Tensor:
+    _check_sparse(fn, digits, b, schedule, block_m, block_k, annotated,
+                  scale, bias, scale_n)
+    _check_epilogue(fn, activation, scale, bias, scale_n, "m",
+                    digits.shape[1], b.shape[0])
+    acc = _schedule_sum(digits, b, schedule, block_m, block_k)
+    return _epilogue(acc, scale.to(torch.float32),
+                     None if bias is None else bias.to(torch.float32),
+                     None if scale_n is None else scale_n.to(torch.float32),
+                     activation)
+
+
+def bw_gemm_sparse_plain(digits, b, schedule, *, block_m: int,
+                         block_k: int) -> torch.Tensor:
+    """Plain torch version of :func:`bw_gemm_sparse`: exact int32 [M, N]."""
+    return _sparse_plain("bw_gemm_sparse", False, digits, b, schedule,
+                         block_m=block_m, block_k=block_k)
+
+
+def bw_gemm_sparse_fused_plain(digits, b, schedule, scale, bias=None,
+                               scale_n=None, *, block_m: int, block_k: int,
+                               activation=None) -> torch.Tensor:
+    """Plain torch version of :func:`bw_gemm_sparse_fused`: f32 [M, N]."""
+    return _sparse_fused_plain("bw_gemm_sparse_fused", False, digits, b,
+                               schedule, scale, bias, scale_n,
+                               block_m=block_m, block_k=block_k,
+                               activation=activation)
+
+
+def bw_gemm_sparse_pipelined_plain(digits, b, schedule, *, block_m: int,
+                                   block_k: int) -> torch.Tensor:
+    """Plain torch version of :func:`bw_gemm_sparse_pipelined`."""
+    return _sparse_plain("bw_gemm_sparse_pipelined", True, digits, b,
+                         schedule, block_m=block_m, block_k=block_k)
+
+
+def bw_gemm_sparse_fused_pipelined_plain(digits, b, schedule, scale,
+                                         bias=None, scale_n=None, *,
+                                         block_m: int, block_k: int,
+                                         activation=None) -> torch.Tensor:
+    """Plain torch version of :func:`bw_gemm_sparse_fused_pipelined`."""
+    return _sparse_fused_plain("bw_gemm_sparse_fused_pipelined", True,
+                               digits, b, schedule, scale, bias, scale_n,
+                               block_m=block_m, block_k=block_k,
+                               activation=activation)
 
 
 # ---------------------------------------------------------------------------
@@ -239,10 +383,7 @@ def bw_gemm_fused(digits, b, mask, scale, bias=None, scale_n=None, *,
     n = b.shape[0]
     _check_epilogue("bw_gemm_fused", activation, scale, bias, scale_n,
                     epilogue_axis, m, n)
-    for t, name in ((scale, "scale"), (bias, "bias"), (scale_n, "scale_n")):
-        if t is not None and t.dtype != torch.float32:
-            raise TypeError(f"bw_gemm_fused: {name} must be float32, got "
-                            f"{t.dtype}")
+    _check_float32("bw_gemm_fused", scale=scale, bias=bias, scale_n=scale_n)
     _check_cuda("bw_gemm_fused", block_m, block_k, digits, b, mask, scale,
                 bias, scale_n)
     out = torch.empty((m, n), dtype=torch.float32, device=digits.device)
@@ -258,5 +399,188 @@ def bw_gemm_fused(digits, b, mask, scale, bias=None, scale_n=None, *,
     return out
 
 
+def _sparse_lib():
+    from . import _build
+    lib = _build.load("bw_gemm_sparse")
+    if not getattr(lib, "_argtypes_set", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        for fn, n_ptr, n_int in (("bw_gemm_sparse_i32", 4, 8),
+                                 ("bw_gemm_sparse_fused", 7, 9),
+                                 ("bw_gemm_sparse_pipelined_i32", 4, 9),
+                                 ("bw_gemm_sparse_fused_pipelined", 8, 10)):
+            getattr(lib, fn).argtypes = [p] * n_ptr + [i] * n_int + [p]
+            getattr(lib, fn).restype = i
+        lib._argtypes_set = True
+    return lib
+
+
+def _check_float32(fn: str, **vectors):
+    for name, t in vectors.items():
+        if t is not None and t.dtype != torch.float32:
+            raise TypeError(f"{fn}: {name} must be float32, got {t.dtype}")
+
+
+def _per_cta(steps: int, device) -> int:
+    """Schedule entries a pipelined CTA walks: about four CTAs an SM."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, -(-steps // (4 * sms)))
+
+
+def _check_pipelined(fn: str, block_k: int, n: int, block_m: int):
+    cpk = block_k // 16
+    lanes = min(cpk, 32)
+    if lanes & (lanes - 1) or cpk % lanes:
+        raise ValueError(f"{fn}: block_k={block_k} must be 16 times a power "
+                         f"of two below 32, or a multiple of 512")
+    nt = 1 if n <= 1 else 2 if n <= 2 else 4 if n <= 4 else 8
+    if nt * block_k + 4 * nt * block_m > 48 * 1024:
+        raise ValueError(f"{fn}: block_m={block_m}, block_k={block_k} need "
+                         f"more than 48 KB of shared memory")
+
+
+def _sparse_dims(digits, b, schedule):
+    bw_n, m, k = digits.shape
+    return (schedule.shape[0], schedule.shape[1], bw_n, m, k, b.shape[0])
+
+
+def bw_gemm_sparse(digits, b, schedule, *, block_m: int = 128,
+                   block_k: int = 256) -> torch.Tensor:
+    """C[M, N] = sum over the schedule's entries of
+    (digits[plane] block @ b.T block) * weight, int32.
+
+    digits: int8 [BW, M, K]; b: int8 [N, K]; schedule: int32 [L, >= 6] in
+    m_major order (SCHED_COLS; each m-block row's entries consecutive).
+    Replaces the reference's ``bw_gemm_sparse`` Pallas kernel.
+    """
+    if digits.device.type != "cuda":
+        return bw_gemm_sparse_plain(digits, b, schedule, block_m=block_m,
+                                    block_k=block_k)
+    fn = "bw_gemm_sparse"
+    _check_sparse(fn, digits, b, schedule, block_m, block_k, False)
+    _check_cuda(fn, block_m, block_k, digits, b, schedule)
+    dims = _sparse_dims(digits, b, schedule)
+    out = torch.empty((dims[3], dims[5]), dtype=torch.int32,
+                      device=digits.device)
+    with torch.cuda.device(digits.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _sparse_lib().bw_gemm_sparse_i32(
+            digits.data_ptr(), b.data_ptr(), schedule.data_ptr(),
+            out.data_ptr(), *dims, block_m, block_k, stream)
+    _raise_on(fn, err)
+    bw_gemm_sparse.launches += 1
+    return out
+
+
+def bw_gemm_sparse_fused(digits, b, schedule, scale, bias=None, scale_n=None,
+                         *, block_m: int = 128, block_k: int = 256,
+                         activation=None) -> torch.Tensor:
+    """bw_gemm_sparse with the fused epilogue of :func:`bw_gemm_fused`
+    (epilogue_axis='m'): scale f32 [M, 1], optional bias [M, 1] and
+    scale_n [1, N].  Returns f32 [M, N]; a sentinel row is
+    act(0 * s + bias).  Replaces the reference's ``bw_gemm_sparse_fused``.
+    """
+    if digits.device.type != "cuda":
+        return bw_gemm_sparse_fused_plain(
+            digits, b, schedule, scale, bias, scale_n, block_m=block_m,
+            block_k=block_k, activation=activation)
+    fn = "bw_gemm_sparse_fused"
+    _check_sparse(fn, digits, b, schedule, block_m, block_k, False, scale,
+                  bias, scale_n)
+    _check_epilogue(fn, activation, scale, bias, scale_n, "m",
+                    digits.shape[1], b.shape[0])
+    _check_float32(fn, scale=scale, bias=bias, scale_n=scale_n)
+    _check_cuda(fn, block_m, block_k, digits, b, schedule, scale, bias,
+                scale_n)
+    dims = _sparse_dims(digits, b, schedule)
+    out = torch.empty((dims[3], dims[5]), dtype=torch.float32,
+                      device=digits.device)
+    with torch.cuda.device(digits.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _sparse_lib().bw_gemm_sparse_fused(
+            digits.data_ptr(), b.data_ptr(), schedule.data_ptr(),
+            scale.data_ptr(), _ptr(scale_n), _ptr(bias), out.data_ptr(),
+            *dims, block_m, block_k, _ACT_CODES[activation], stream)
+    _raise_on(fn, err)
+    bw_gemm_sparse_fused.launches += 1
+    return out
+
+
+def bw_gemm_sparse_pipelined(digits, b, schedule, *, block_m: int = 128,
+                             block_k: int = 256) -> torch.Tensor:
+    """bw_gemm_sparse on a schedule in either order: int32 [M, N],
+    bit-identical to bw_gemm_sparse on the same mask.
+
+    schedule: int32 [L, 9] (every SCHED_COLS column).  One call is one
+    counted launch (the kernel's workspace memset included).  Replaces
+    the reference's ``bw_gemm_sparse_pipelined``.
+    """
+    if digits.device.type != "cuda":
+        return bw_gemm_sparse_pipelined_plain(
+            digits, b, schedule, block_m=block_m, block_k=block_k)
+    fn = "bw_gemm_sparse_pipelined"
+    _check_sparse(fn, digits, b, schedule, block_m, block_k, True)
+    _check_cuda(fn, block_m, block_k, digits, b, schedule)
+    _check_pipelined(fn, block_k, b.shape[0], block_m)
+    dims = _sparse_dims(digits, b, schedule)
+    out = torch.empty((dims[3], dims[5]), dtype=torch.int32,
+                      device=digits.device)
+    with torch.cuda.device(digits.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _sparse_lib().bw_gemm_sparse_pipelined_i32(
+            digits.data_ptr(), b.data_ptr(), schedule.data_ptr(),
+            out.data_ptr(), *dims, block_m, block_k,
+            _per_cta(dims[0], digits.device), stream)
+    _raise_on(fn, err)
+    bw_gemm_sparse_pipelined.launches += 1
+    return out
+
+
+def bw_gemm_sparse_fused_pipelined(digits, b, schedule, scale, bias=None,
+                                   scale_n=None, *, block_m: int = 128,
+                                   block_k: int = 256,
+                                   activation=None) -> torch.Tensor:
+    """bw_gemm_sparse_fused on a schedule in either order, bit-identical
+    to it on the same mask.
+
+    schedule: int32 [L, 9].  One call is one counted launch, though the
+    kernel takes two on the card (the walk into an int32 workspace, then
+    the epilogue).  Replaces the reference's
+    ``bw_gemm_sparse_fused_pipelined``.
+    """
+    if digits.device.type != "cuda":
+        return bw_gemm_sparse_fused_pipelined_plain(
+            digits, b, schedule, scale, bias, scale_n, block_m=block_m,
+            block_k=block_k, activation=activation)
+    fn = "bw_gemm_sparse_fused_pipelined"
+    _check_sparse(fn, digits, b, schedule, block_m, block_k, True, scale,
+                  bias, scale_n)
+    _check_epilogue(fn, activation, scale, bias, scale_n, "m",
+                    digits.shape[1], b.shape[0])
+    _check_float32(fn, scale=scale, bias=bias, scale_n=scale_n)
+    _check_cuda(fn, block_m, block_k, digits, b, schedule, scale, bias,
+                scale_n)
+    _check_pipelined(fn, block_k, b.shape[0], block_m)
+    dims = _sparse_dims(digits, b, schedule)
+    ws = torch.empty((dims[3], dims[5]), dtype=torch.int32,
+                     device=digits.device)
+    out = torch.empty((dims[3], dims[5]), dtype=torch.float32,
+                      device=digits.device)
+    with torch.cuda.device(digits.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _sparse_lib().bw_gemm_sparse_fused_pipelined(
+            digits.data_ptr(), b.data_ptr(), schedule.data_ptr(),
+            scale.data_ptr(), _ptr(scale_n), _ptr(bias), ws.data_ptr(),
+            out.data_ptr(), *dims, block_m, block_k,
+            _per_cta(dims[0], digits.device), _ACT_CODES[activation],
+            stream)
+    _raise_on(fn, err)
+    bw_gemm_sparse_fused_pipelined.launches += 1
+    return out
+
+
 bw_gemm.launches = 0
 bw_gemm_fused.launches = 0
+bw_gemm_sparse.launches = 0
+bw_gemm_sparse_fused.launches = 0
+bw_gemm_sparse_pipelined.launches = 0
+bw_gemm_sparse_fused_pipelined.launches = 0

@@ -52,13 +52,13 @@
 
 #include <cuda_runtime.h>
 
+#include "epilogue.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;        // warps per CTA; one output row per warp
 constexpr int kMaxPlanes = 8;    // radix-2 encodings of int8 have 8 planes
 constexpr int kMinCtasPerSm = 3; // register cap: <= 85 registers a thread
-
-enum Activation : int { kNone = 0, kSilu = 1, kGelu = 2, kRelu2 = 3 };
 
 struct Problem {
   const int8_t* digits;    // [bw, m_pad, k_pad]
@@ -66,14 +66,6 @@ struct Problem {
   const uint8_t* mask;     // [bw, m_pad / block_m, k_pad / block_k]
   int bw, m_pad, k_pad, n, block_m, block_k, radix;
 };
-
-__device__ __forceinline__ int dot16(const int4& a, const int4& b, int acc) {
-  acc = __dp4a(a.x, b.x, acc);
-  acc = __dp4a(a.y, b.y, acc);
-  acc = __dp4a(a.z, b.z, acc);
-  acc = __dp4a(a.w, b.w, acc);
-  return acc;
-}
 
 // Full int32 sums of row m against columns n0 .. n0+NT-1, in every lane.
 // BW is the compile-time plane capacity (4 or 8); planes past pr.bw are
@@ -153,28 +145,6 @@ bw_gemm_i32_kernel(Problem pr, int32_t* __restrict__ out) {
 #pragma unroll
     for (int j = 0; j < NT; ++j)
       if (n0 + j < pr.n) out[static_cast<size_t>(m) * pr.n + n0 + j] = acc[j];
-  }
-}
-
-__device__ __forceinline__ float activate(float y, int act) {
-  // The plain versions' formulas: silu = y * (1 / (1 + exp(-y))), one
-  // rounding a step, and torch's tanh-form gelu; expf / tanhf differ from
-  // the host libraries by a few ulps.
-  constexpr float kBeta = 0.7978845608028654f;    // sqrt(2 / pi)
-  constexpr float kKappa = 0.044715f;
-  switch (act) {
-    case kSilu:
-      return __fmul_rn(y, __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-y))));
-    case kGelu: {
-      const float inner = kBeta * (y + kKappa * y * y * y);
-      return 0.5f * y * (1.0f + tanhf(inner));
-    }
-    case kRelu2: {
-      const float r = fmaxf(y, 0.0f);
-      return __fmul_rn(r, r);
-    }
-    default:
-      return y;
   }
 }
 

@@ -2,10 +2,10 @@
 (``repro.serving.engine``).
 
 One engine serves one ``QuantSpec`` (baked into its cfg) on one device.
-With a kernel impl ("pallas" / "pallas_fused") every dense weight is
-planned once at construction (quantize -> row permutation -> digit planes
--> occupancy mask) and each of the seven projections per block runs the
-Hopper bw_gemm kernel at every step.  Each step feeds every slot one
+With a kernel impl (KERNEL_IMPLS) every dense weight is planned once at
+construction (quantize -> row permutation -> digit planes -> occupancy
+mask -> block schedule) and each of the seven projections per block runs
+a Hopper bw_gemm kernel at every step.  Each step feeds every slot one
 token -- prompt tokens are teacher-forced through the same decode step --
 and greedily samples the next.
 """
@@ -28,7 +28,8 @@ from .slots import SlotAllocator
 __all__ = ["ServeEngine", "KERNEL_IMPLS"]
 
 # engines that serve from pre-planned weights through the port's kernels
-KERNEL_IMPLS = ("pallas", "pallas_fused")
+KERNEL_IMPLS = ("pallas", "pallas_fused", "pallas_sparse",
+                "pallas_pipelined")
 
 
 class ServeEngine:

@@ -67,12 +67,13 @@ def _both_plans(w, text):
     ((520, 300), "planes=2,encoding=ent,block_m=256")])
 def test_plan_arrays_match_reference(shape, text):
     jplan, tplan, _, _ = _both_plans(_weight(shape, 1), text)
-    for key in ("digits", "mask", "row_perm", "inv_perm", "sw_rows"):
+    assert set(tplan) == set(jplan)
+    for key in ("digits", "mask", "schedule", "row_perm", "inv_perm",
+                "sw_rows"):
         want = np.asarray(jplan[key])
         got = tplan[key].numpy()
         assert got.shape == want.shape, key
         np.testing.assert_array_equal(got, want, err_msg=key)
-    assert "schedule" not in tplan
 
 
 def _kernel_case(shape, n, seed):
@@ -216,8 +217,9 @@ def test_quantized_dense_and_plan_params():
             "norm": {"scale": torch.ones(4)}}
     planned, count = tops.plan_params(tree, spec)
     assert count == 2 and "w_plan" not in tree["a"]
-    assert set(planned["a"]["w_plan"]) == {"digits", "mask", "row_perm",
-                                           "inv_perm", "sw_rows"}
+    assert set(planned["a"]["w_plan"]) == {"digits", "mask", "schedule",
+                                           "row_perm", "inv_perm",
+                                           "sw_rows"}
     masks = [planned["a"]["w_plan"]["mask"],
              planned["blocks"][0]["b"]["w_plan"]["mask"]]
     want_density = sum(int(m.sum()) for m in masks) / \
@@ -253,7 +255,7 @@ def test_wrappers_reject_malformed_operands():
     with pytest.raises(ValueError, match="dispatch"):
         tops.planned_dense_apply(plan, x, TSpec.parse(MAIN_SPEC), 40,
                                  dispatch="bogus")
-    with pytest.raises(NotImplementedError, match="sparse"):
+    with pytest.raises(TypeError, match="int32"):
         tops.planned_dense_apply(dict(plan, schedule=torch.zeros(1, 9)), x,
                                  TSpec.parse(MAIN_SPEC), 40,
                                  dispatch="sparse")
