@@ -8,27 +8,35 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. The card: prints ``nvidia-smi``'s name and power limit; no CUDA device
    is a failure.
-2. Build: compiles the kernel sources ``src/repro_torch/kernels/csrc/
-   bw_gemm.cu`` and ``bw_gemm_sparse.cu`` with nvcc, one process each, both
-   started together, and prints the build seconds and ptxas' register and
-   spill report of each kernel instantiation.
+2. Build: compiles the kernel sources under ``src/repro_torch/kernels/
+   csrc/`` -- ``bw_gemm.cu``, ``bw_gemm_sparse.cu``, ``encode.cu`` and
+   ``quant_gemm.cu`` -- with nvcc, one process each, all started together,
+   and prints the build seconds and ptxas' register and spill report of
+   each kernel instantiation.
 3. Kernels against their plain versions, at the main path's shapes
-   (M, K_pad) in {(2304, 2304), (5760, 2304), (2304, 5888)}, N in {1, 4}.
-   Dense (B1 bw_gemm_fused, B2 bw_gemm): seeded weights planned at
-   planes=3, masks with a False block over non-zero digits.  Sparse (B3
-   bw_gemm_sparse_fused, B4 bw_gemm_sparse) and pipelined (B5
-   bw_gemm_sparse_fused_pipelined, B6 bw_gemm_sparse_pipelined): seeded
-   weights at planes=2, schedules in both orders built from masks with a
-   False block over non-zero digits, and from a mask with an all-empty row
-   block as well (a sentinel).  Integer results, and fused results
-   without an activation, must be bit-identical to the plain versions;
-   with an activation within rtol 1e-5, atol 1e-6 (the card's expf/tanhf
-   against torch's own kernels, and gelu's 1 + tanh cancellation for
-   negative inputs); B5 on either order must equal B3.  Each kernel is
-   timed L2-cold (``cuda_ms``, the median of 24 calls), with its plain
-   version, and torch._int_mm
-   on the undecomposed int8 weight as a yardstick the port never calls;
-   B3/B4 on m_major schedules, B5/B6 on k_major ones, as they serve.
+   (M, K_pad) in {(2304, 2304), (5760, 2304), (2304, 5888)}.
+   Dense (B1 bw_gemm_fused, B2 bw_gemm), N in {1, 4, 512}: seeded weights
+   planned at planes=3, masks with a False block over non-zero digits.
+   Sparse (B3 bw_gemm_sparse_fused, B4 bw_gemm_sparse) and pipelined (B5
+   bw_gemm_sparse_fused_pipelined, B6 bw_gemm_sparse_pipelined), N in
+   {1, 4}: seeded weights at planes=2, schedules in both orders built from
+   masks with a False block over non-zero digits, and from a mask with an
+   all-empty row block as well (a sentinel).  B7 ent_encode, blocks
+   128 x 256: uniform int8 and planes=3 weights at the three shapes, and
+   the 256 int8 values tiled into one block; digits and mask must be
+   bit-identical.  B9 quant_gemm (the weight as A [M, K], T tokens as B
+   [K, T]) and B8 quant_gemm_fused (T tokens as A [T, K], the weight as B
+   [K, M]), T in {1, 4, 512}: B8 in both epilogue axes, with and without a
+   bias, under every activation, and in bfloat16.  Integer results, and
+   fused results without an activation, must be bit-identical to the
+   plain versions; with an activation within rtol 1e-5, atol 1e-6 (the
+   card's expf/tanhf against torch's own kernels, and gelu's 1 + tanh
+   cancellation for negative inputs); B5 on either order must equal B3.
+   Each kernel is timed L2-cold (``cuda_ms``, the median of 24 calls),
+   with its plain version, and torch._int_mm on the undecomposed int8
+   weight as a yardstick the port never calls; B3/B4 on m_major
+   schedules, B5/B6 on k_major ones, as they serve; B8 on axis 'n'
+   without a bias.
 4. The path: ServeEngine on the full-width minicpm-2b config (all 40
    layers), params from a seeded torch.Generator, 8 seeded prompts of 8-24
    tokens, batch 4, 16 new tokens, max_len 64, on the same params: at
@@ -41,24 +49,42 @@ Phases (any failure exits non-zero and prints no result line):
    torch.profiler then traces three more decode steps of each route:
    device time per step, the kernels' share of it, and the device's busy
    share of the step time measured without the profiler.
+5. The kernel-level API on every dense weight of the same params (7 * 40
+   = 280), one weight at a time, at the main path's planes=3 spec: the
+   plan with ``ops.plan_operand(encode_impl="kernel")`` (B7) must equal
+   the oracle's in digits, mask, schedule and permutations;
+   ``ops.quant_gemm(qw.T, xq.T)`` (B9) must equal ``ops.bw_gemm(plan,
+   xq.T)`` (B2) and ``ops.quant_gemm_fused(xq, qw, s).T`` (B8) must equal
+   ``ops.bw_gemm_fused(plan, xq.T, s)`` (B1) bit for bit, for seeded
+   per-token int8 activations xq [4, K]; a second pass with silu holds B8
+   against B1 within the tolerance above.  Every count is zeroed first;
+   the plain pass must launch B7, B9, B8, B2 and B1 280 times each and the
+   silu pass B8 and B1 280 times each, every other kernel 0.  Logs the
+   host seconds to plan the 280 weights with each encoder.
 
 The kernels line gives, per kernel, one layer's seven launches at N=4
-(four 2304x2304, two 5760x2304 and one 2304x5888 products): ``ms`` the
-kernel, ``plain_ms`` the plain version, ``library_ms`` torch._int_mm,
-``bound_ms`` the larger of the bytes they must move at 3.35 TB/s and their
-int8 operations at 1979 TOP/s (H100 SXM data sheet), counted from this
-run's masks and schedules (live plane blocks only) and the operands each
-timed call passes: the live digits, the activations, the mask (dense) or
-the schedule (sparse, pipelined), the output (int32, or float32 when
-fused) and, when fused, the two scale vectors; fused kernels are timed
-without a bias.  ``launches`` is the count on the kernel's own route:
-pallas_fused at planes=3 for B1, pallas for B2, pallas_sparse for B3 and
-pallas_pipelined for B5.  B4 and B6, the unfused twins, serve no engine;
-after the pallas_sparse and pallas_pipelined runs, every planned weight
-of the served model goes once through planned_dense_apply(fused=False)
-on the engine's sparse route (B4 on its m_major plans, B6 on the k_major
-ones), held bit-identical to the dense route (B2) on the same record, and
-their counts are read from that pass.  The last line is
+(four 2304x2304, two 5760x2304 and one 2304x5888 products; B7: one
+encode of each plan shape; B8/B9 at T=4 in phase 5's orientations):
+``ms`` the kernel, ``plain_ms`` the plain version, ``library_ms``
+torch._int_mm (B7: null, no single PyTorch call encodes), ``bound_ms``
+the larger of the bytes they must move at 3.35 TB/s and their int8
+operations at 1979 TOP/s (H100 SXM data sheet), counted from this run's
+masks and schedules (live plane blocks only) and the operands each timed
+call passes: the live digits, the activations, the mask (dense) or the
+schedule (sparse, pipelined), the output (int32, or float32 when fused)
+and, when fused, the scale vectors; fused kernels are timed without a
+bias.  B7 moves its input and four digit planes and the mask; B8/B9
+their two int8 operands and the output (B8: and its scale).  A line
+before it gives B1, B2, B8 and B9 at N=512.  ``launches`` is the count
+on the kernel's own route: pallas_fused at planes=3 for B1, pallas for
+B2, pallas_sparse for B3 and pallas_pipelined for B5.  B4 and B6, the
+unfused twins, serve no engine; after the pallas_sparse and
+pallas_pipelined runs, every planned weight of the served model goes
+once through planned_dense_apply(fused=False) on the engine's sparse
+route (B4 on its m_major plans, B6 on the k_major ones), held
+bit-identical to the dense route (B2) on the same record, and their
+counts are read from that pass.  B7-B9 serve no engine either: their
+counts are phase 5's plain pass.  The last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -160,7 +186,7 @@ def kernel_cases(dev, log):
                              device=dev)
         wq_pad[:m, :k] = qw.t()
         bias = torch.randn((digits.shape[1], 1), generator=gen, device=dev)
-        for n in (1, 4):
+        for n in (1, 4, 512):
             x = torch.randn((n, k), generator=gen, device=dev)
             qx, sx = quant.quantize_to_planes(x, 3, axis=-1)
             b = torch.zeros((n, k_pad), dtype=torch.int8, device=dev)
@@ -204,7 +230,8 @@ def kernel_cases(dev, log):
                         f"K={k_pad} N={n}: max |diff| {diff}")
 
             # timing, L2-cold: kernel, plain version, torch._int_mm
-            b8 = torch.zeros((8, k_pad), dtype=torch.int8, device=dev)
+            b8 = torch.zeros((max(8, n), k_pad), dtype=torch.int8,
+                             device=dev)
             b8[:n] = b
             wq_cold = cold_copies(wq_pad)
             try:
@@ -247,7 +274,28 @@ def kernel_cases(dev, log):
 
 SPARSE = ("bw_gemm_sparse_fused", "bw_gemm_sparse",
           "bw_gemm_sparse_fused_pipelined", "bw_gemm_sparse_pipelined")
-KERNELS = ("bw_gemm_fused", "bw_gemm") + SPARSE
+BASELINE = ("ent_encode", "quant_gemm_fused", "quant_gemm")
+KERNELS = ("bw_gemm_fused", "bw_gemm") + SPARSE + BASELINE
+
+
+def kernel_fns() -> dict:
+    """Kernel name -> its wrapper, which carries the ``launches`` count."""
+    from repro_torch.kernels import bw_gemm as bwk
+    from repro_torch.kernels import encode, quant_gemm
+    fns = {name: getattr(bwk, name) for name in KERNELS[:-3]}
+    fns.update(ent_encode=encode.ent_encode,
+               quant_gemm_fused=quant_gemm.quant_gemm_fused,
+               quant_gemm=quant_gemm.quant_gemm)
+    return fns
+
+
+def zero_counts() -> None:
+    for fn in kernel_fns().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in kernel_fns().items()}
 
 
 def sparse_cases(dev, log):
@@ -377,6 +425,235 @@ def sparse_cases(dev, log):
     return per_kernel, err
 
 
+def baseline_cases(dev, log):
+    """Phase 3, B7-B9: against their plain versions, timed."""
+    import torch
+    from repro_torch.core import quant
+    from repro_torch.kernels import encode
+    from repro_torch.kernels import quant_gemm as qg
+
+    gen = torch.Generator(device=dev).manual_seed(2718)
+    per_kernel = {name: [] for name in BASELINE}
+    err = dict.fromkeys(BASELINE, 0.0)
+
+    def int8(*shape):
+        return torch.randint(-128, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    def check(name, got, want, exact, what):
+        torch.cuda.synchronize()
+        diff = float((got.float() - want.float()).abs().max())
+        err[name] = max(err[name], diff)
+        ok = torch.equal(got, want) if exact else bool(torch.all(
+            (got - want).abs() <= ACT_ATOL + ACT_RTOL * want.abs()))
+        if not ok:
+            raise AssertionError(f"{name} != {what}: max |diff| {diff}")
+
+    def row(name, ms, plain_ms, lib_ms, moved, ops_n, **shape):
+        r = dict(shape, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                 bytes=moved, ops=ops_n)
+        r["bound_ms"] = 1e3 * max(moved / HBM_BYTES_PER_S,
+                                  ops_n / INT8_OPS_PER_S)
+        per_kernel[name].append(r)
+        lib = "-" if lib_ms is None else f"{lib_ms:.4f}"
+        log(f"  {name:16s} {shape}  kernel {ms:.4f} ms  plain "
+            f"{plain_ms:.4f} ms  _int_mm {lib} ms  bound "
+            f"{r['bound_ms']:.4f} ms")
+
+    # B7 ent_encode at the plan shapes (blocks 128 x 256): uniform int8,
+    # and a seeded weight on the planes=3 grid (plane 3 empty), timed
+    kw7 = dict(block_m=128, block_k=256)
+    every = torch.arange(-128, 128, dtype=torch.int8,
+                         device=dev).repeat(128).reshape(128, 256)
+    cases = [("all 256 int8 values", every)]
+    for m, k, per_layer in PATH_SHAPES:
+        w = torch.randn((m, k), generator=gen, device=dev)
+        cases += [(f"uniform {m}x{k}", int8(m, k)),
+                  (f"planes=3 {m}x{k}",
+                   quant.quantize_to_planes(w, 3, axis=1)[0].contiguous())]
+    for what, x in cases:
+        d, mask = encode.ent_encode(x, **kw7)
+        dp, mp = encode.ent_encode_plain(x, **kw7)
+        check("ent_encode", d, dp, True, f"plain digits on {what}")
+        check("ent_encode", mask, mp, True, f"plain mask on {what}")
+    for m, k, per_layer in PATH_SHAPES:
+        x = cases[[c[0] for c in cases].index(f"planes=3 {m}x{k}")][1]
+        x_cold = cold_copies(x)
+        row("ent_encode",
+            cuda_ms(lambda i: encode.ent_encode(x_cold[i % len(x_cold)],
+                                                **kw7)),
+            cuda_ms(lambda i: encode.ent_encode_plain(x, **kw7), 5, 1), None,
+            5 * m * k + 4 * (m // 128) * (k // 256), 0, m=m, k_pad=k,
+            n=None, per_layer=per_layer)
+        del x_cold
+
+    # B9 quant_gemm in the planned orientation (the weight as A [M, K],
+    # the activations as B [K, T]) and B8 quant_gemm_fused in the serving
+    # one (the activations as A [T, K], the weight as B [K, M]), T tokens
+    for m, k, per_layer in PATH_SHAPES:
+        w = int8(m, k)                     # the weight's rows [M, K]
+        wt = w.t().contiguous()            # [K, M]
+        for t in (1, 4, 512):
+            x = int8(t, k)
+            xt = x.t().contiguous()
+            where = f"M={m} K={k} T={t}"
+            kw9 = dict(block_m=128, block_n=min(t, 128), block_k=256)
+            check("quant_gemm", qg.quant_gemm(w, xt, **kw9),
+                  qg.quant_gemm_plain(w, xt, **kw9), True, f"plain at {where}")
+            kw8 = dict(block_m=min(t, 128), block_n=128, block_k=256)
+            for axis in ("n", "m"):
+                shape = (1, m) if axis == "n" else (t, 1)
+                scale = torch.rand(shape, generator=gen, device=dev) * 1e-3
+                bias = torch.randn(shape, generator=gen, device=dev)
+                for act in (None, "silu", "gelu", "relu2"):
+                    for b in (None, bias):
+                        args = (x, wt, scale, b)
+                        fkw = dict(kw8, activation=act, epilogue_axis=axis)
+                        check("quant_gemm_fused",
+                              qg.quant_gemm_fused(*args, **fkw),
+                              qg.quant_gemm_fused_plain(*args, **fkw),
+                              act is None, f"plain at {where} axis={axis} "
+                              f"act={act} bias={b is not None}")
+                bkw = dict(kw8, epilogue_axis=axis, out_dtype=torch.bfloat16)
+                check("quant_gemm_fused",
+                      qg.quant_gemm_fused(x, wt, scale, bias, **bkw),
+                      qg.quant_gemm_fused_plain(x, wt, scale, bias, **bkw),
+                      True, f"plain at {where} axis={axis} bf16")
+            if t == 1:
+                continue
+            # timing, L2-cold on the weight: B9, B8 (axis 'n', no bias),
+            # their plain versions, torch._int_mm on the same product
+            xpad = torch.zeros((max(8, t), k), dtype=torch.int8, device=dev)
+            xpad[:t] = x
+            w_cold = cold_copies(w)
+            try:
+                torch._int_mm(w, xpad.t())
+                lib_ms = cuda_ms(lambda i: torch._int_mm(
+                    w_cold[i % len(w_cold)], xpad.t()))
+            except RuntimeError as e:
+                log(f"  torch._int_mm unavailable at {where}: {e}")
+                lib_ms = None
+            shape = dict(m=m, k_pad=k, n=t, per_layer=per_layer)
+            row("quant_gemm",
+                cuda_ms(lambda i: qg.quant_gemm(w_cold[i % len(w_cold)], xt,
+                                                **kw9)),
+                cuda_ms(lambda i: qg.quant_gemm_plain(w, xt, **kw9), 5, 1),
+                lib_ms, m * k + k * t + 4 * m * t, 2 * m * t * k, **shape)
+            del w_cold
+            wt_cold = cold_copies(wt)
+            scale = torch.rand((1, m), generator=gen, device=dev)
+            row("quant_gemm_fused",
+                cuda_ms(lambda i: qg.quant_gemm_fused(
+                    x, wt_cold[i % len(wt_cold)], scale, **kw8)),
+                cuda_ms(lambda i: qg.quant_gemm_fused_plain(
+                    x, wt, scale, **kw8), 5, 1),
+                lib_ms, t * k + k * m + 4 * t * m + 4 * m, 2 * m * t * k,
+                **shape)
+            del wt_cold
+    return per_kernel, err
+
+
+def kernel_api_pass(params, dev, log) -> dict:
+    """Phase 5: the kernel-level ops API on every dense weight of the
+    served model at the main path's planes=3 spec, one weight at a time.
+
+    Per weight: the plan with encode_impl='kernel' (B7) equals the
+    oracle's; B9 on the planned orientation equals B2 on the plan, and B8
+    on the serving orientation equals B1, bit for bit (then both again
+    with silu).  Returns the launch counts of the plain pass and of the
+    silu pass, and the host seconds spent planning with each encoder."""
+    import torch
+    from repro_torch.core import quant
+    from repro_torch.engine import QuantSpec
+    from repro_torch.kernels import ops
+
+    spec = QuantSpec.parse("planes=3,encoding=ent,act_quant=per_token,"
+                           "impl=pallas_fused")
+
+    def walk(node, out):
+        if isinstance(node, list):
+            for v in node:
+                walk(v, out)
+        elif isinstance(node, dict):
+            w = node.get("w")
+            if isinstance(w, torch.Tensor) and w.dim() == 2:
+                out.append(w)
+            for v in node.values():
+                walk(v, out)
+        return out
+    weights = walk(params, [])
+    gen = torch.Generator(device=dev).manual_seed(314)
+    plan_s = {"kernel": 0.0, "ref": 0.0}
+    passes = {"plain": dict.fromkeys(KERNELS, 0),
+              "silu": dict.fromkeys(KERNELS, 0)}
+    silu_diff = 0.0
+    silu_equal = True
+
+    def tally(which, before):
+        for name, count in read_counts().items():
+            passes[which][name] += count - before[name]
+
+    zero_counts()
+    for idx, w in enumerate(weights):
+        k, n = w.shape
+        qw, sw = quant.quantize_for_spec(w.to(torch.float32), spec, axis=0)
+        bm, bk, _ = ops.select_block_sizes(n, k, 128, spec)
+        before = read_counts()
+        plans = {}
+        # alternate which encoder plans first, so neither always finds
+        # the weight in L2
+        for impl in (("kernel", "ref") if idx % 2 == 0 else ("ref",
+                                                             "kernel")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plans[impl] = ops.plan_operand(qw.t(), spec.encoding, bm, bk,
+                                           encode_impl=impl, bits=spec.bits)
+            torch.cuda.synchronize()
+            plan_s[impl] += time.perf_counter() - t0
+        planned = plans["kernel"]
+        for field in ("digits", "mask", "schedule", "row_perm", "inv_perm"):
+            if not torch.equal(getattr(planned, field),
+                               getattr(plans["ref"], field)):
+                raise AssertionError(f"weight {idx} {tuple(w.shape)}: "
+                                     f"kernel-encoded plan's {field} != "
+                                     f"the oracle's")
+        del plans
+        x = torch.randn((4, k), generator=gen, device=dev)
+        xq, _ = quant.quantize_for_spec(x, spec, axis=-1)     # per token
+        # B8 has no per-token axis: its scale is sw times the per-tensor
+        # activation scale of the same x (the check is the identity of
+        # the two kernels)
+        _, sx = quant.quantize_for_spec(x, spec)
+        s = (sw.reshape(-1) * sx).contiguous()
+        got9 = ops.quant_gemm(qw.t(), xq.t())
+        got2 = ops.bw_gemm(planned, xq.t())
+        got8 = ops.quant_gemm_fused(xq, qw, s).t()
+        got1 = ops.bw_gemm_fused(planned, xq.t(), s)
+        torch.cuda.synchronize()
+        if not torch.equal(got9, got2):
+            raise AssertionError(f"weight {idx} {tuple(w.shape)}: "
+                                 f"quant_gemm != bw_gemm")
+        if not torch.equal(got8, got1):
+            raise AssertionError(f"weight {idx} {tuple(w.shape)}: "
+                                 f"quant_gemm_fused != bw_gemm_fused")
+        tally("plain", before)
+        before = read_counts()
+        got8 = ops.quant_gemm_fused(xq, qw, s, activation="silu").t()
+        got1 = ops.bw_gemm_fused(planned, xq.t(), s, activation="silu")
+        torch.cuda.synchronize()
+        tally("silu", before)
+        silu_diff = max(silu_diff, float((got8 - got1).abs().max()))
+        silu_equal = silu_equal and torch.equal(got8, got1)
+        if not bool(torch.all((got8 - got1).abs()
+                              <= ACT_ATOL + ACT_RTOL * got1.abs())):
+            raise AssertionError(f"weight {idx} {tuple(w.shape)}: silu "
+                                 f"quant_gemm_fused != bw_gemm_fused")
+        del planned, got9, got2, got8, got1
+    return {"weights": len(weights), "launches": passes,
+            "plan_s": plan_s, "silu_max_abs_diff": silu_diff,
+            "silu_bit_identical": silu_equal}
+
+
 def profile_steps(eng, dev, steps: int = 3) -> dict:
     """torch.profiler over ``steps`` decode steps of a served engine: the
     device time per step (kernel events only; the CPU ops that launched
@@ -422,7 +699,6 @@ def profile_steps(eng, dev, steps: int = 3) -> dict:
 def serve(cfg, params, spec_text, prompts, dev):
     import torch
     from repro_torch.engine import QuantSpec
-    from repro_torch.kernels import bw_gemm as bwk
     from repro_torch.serving.engine import ServeEngine
     from repro_torch.serving.request import ServeRequest
 
@@ -433,10 +709,9 @@ def serve(cfg, params, spec_text, prompts, dev):
     setup_s = time.perf_counter() - t0
     reqs = [ServeRequest(i, list(p), 16) for i, p in enumerate(prompts)]
     torch.cuda.reset_peak_memory_stats()
-    for name in KERNELS:
-        getattr(bwk, name).launches = 0
+    zero_counts()
     stats = eng.run(reqs)
-    launches = {name: getattr(bwk, name).launches for name in KERNELS}
+    launches = read_counts()
     stats.update(setup_s=setup_s, launches=launches,
                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                  ms_per_step=1e3 * stats["wall_s"] / stats["engine_steps"],
@@ -472,7 +747,6 @@ def unfused_routes(eng, dev) -> dict:
     on k_major ones), held bit-identical to the dense route (B2) on the
     same record and batch-4 activations.  Returns the launch counts."""
     import torch
-    from repro_torch.kernels import bw_gemm as bwk
     from repro_torch.kernels import ops
 
     order = "k_major" if eng.spec.impl == "pallas_pipelined" else "m_major"
@@ -494,14 +768,13 @@ def unfused_routes(eng, dev) -> dict:
         return records
     records = walk(eng.params, [])
     outs = []
-    for name in KERNELS:
-        getattr(bwk, name).launches = 0
+    zero_counts()
     for plan, (k, n_out) in records:
         x = torch.randn((4, k), generator=gen, device=dev)
         outs.append((plan, x, n_out, ops.planned_dense_apply(
             plan, x, eng.spec, n_out, fused=False, dispatch=route,
             order=order)))
-    launches = {name: getattr(bwk, name).launches for name in KERNELS}
+    launches = read_counts()
     for plan, x, n_out, got in outs:
         want = ops.planned_dense_apply(plan, x, eng.spec, n_out,
                                        fused=False, dispatch="dense")
@@ -519,7 +792,6 @@ def main() -> int:
     import numpy as np
     from repro_torch.configs.minicpm_2b import CONFIG
     from repro_torch.kernels import _build
-    from repro_torch.kernels import bw_gemm as bwk
     from repro_torch.models.api import get_api
 
     dev = torch.device("cuda")
@@ -540,9 +812,9 @@ def main() -> int:
     # -- 3. kernels against their plain versions -----------------------------
     log("[kernels] bit-exact and timed against the plain versions")
     per_kernel, err = kernel_cases(dev, log)
-    sparse_rows, sparse_err = sparse_cases(dev, log)
-    per_kernel.update(sparse_rows)
-    err.update(sparse_err)
+    for rows, errs in (sparse_cases(dev, log), baseline_cases(dev, log)):
+        per_kernel.update(rows)
+        err.update(errs)
 
     # -- 4. the path at full width -------------------------------------------
     cfg = CONFIG
@@ -604,6 +876,34 @@ def main() -> int:
         "tokens; planes=2: pallas_fused, pallas_sparse and pallas_pipelined"
         " emit the same tokens")
 
+    # -- 5. the kernel-level API on every weight of the model ----------------
+    t0 = time.perf_counter()
+    api = kernel_api_pass(params, dev, log)
+    api_s = time.perf_counter() - t0
+    n_w = api["weights"]
+    if n_w != 7 * cfg.n_layers:
+        raise AssertionError(f"kernel API pass: {n_w} weights, expected "
+                             f"{7 * cfg.n_layers}")
+    expect = {"plain": {name: n_w if name in ("ent_encode", "quant_gemm",
+                                              "quant_gemm_fused", "bw_gemm",
+                                              "bw_gemm_fused") else 0
+                        for name in KERNELS},
+              "silu": {name: n_w if name in ("quant_gemm_fused",
+                                             "bw_gemm_fused") else 0
+                       for name in KERNELS}}
+    if api["launches"] != expect:
+        raise AssertionError(f"kernel API pass: launches {api['launches']},"
+                             f" expected {expect}")
+    log(f"[api] {n_w} weights in {api_s:.1f} s: kernel-encoded plans equal "
+        f"the oracle's; quant_gemm == bw_gemm and quant_gemm_fused == "
+        f"bw_gemm_fused bit for bit; with silu max |diff| "
+        f"{api['silu_max_abs_diff']} (bit-identical: "
+        f"{api['silu_bit_identical']}); host s to plan all {n_w}: "
+        f"encode_impl=kernel {api['plan_s']['kernel']:.3f}, ref "
+        f"{api['plan_s']['ref']:.3f} (both sort rows by the oracle's "
+        f"digits: the kernel replaces one of two encodes a weight); "
+        f"launches {json.dumps(api['launches'])}  ({kind})")
+
     # -- the kernels line ----------------------------------------------------
     replaces = {"bw_gemm_fused": "src/repro/kernels/bw_gemm.py:215",
                 "bw_gemm": "src/repro/kernels/bw_gemm.py:140",
@@ -612,39 +912,60 @@ def main() -> int:
                 "bw_gemm_sparse_fused_pipelined":
                     "src/repro/kernels/bw_gemm.py:678",
                 "bw_gemm_sparse_pipelined":
-                    "src/repro/kernels/bw_gemm.py:583"}
+                    "src/repro/kernels/bw_gemm.py:583",
+                "ent_encode": "src/repro/kernels/encode.py:46",
+                "quant_gemm_fused": "src/repro/kernels/quant_gemm.py:80",
+                "quant_gemm": "src/repro/kernels/quant_gemm.py:33"}
     launches = {"bw_gemm_fused": runs[3, "pallas_fused"],
                 "bw_gemm": runs[3, "pallas"],
                 "bw_gemm_sparse_fused": runs[2, "pallas_sparse"],
                 "bw_gemm_sparse_fused_pipelined": runs[2, "pallas_pipelined"]}
     unfused = {"bw_gemm_sparse": runs[2, "pallas_sparse"],
                "bw_gemm_sparse_pipelined": runs[2, "pallas_pipelined"]}
+    def layer_sums(name, n):
+        """One layer's seven calls of a kernel at N=n (B7: its one row a
+        shape), summed per key; None where a call has no number."""
+        rows = [r for r in per_kernel[name] if r["n"] in (n, None)]
+        out = {}
+        for key in ("ms", "plain_ms", "library_ms", "bytes", "ops"):
+            vals = [r[key] for r in rows]
+            out[key] = None if any(v is None for v in vals) else sum(
+                v * r["per_layer"] for v, r in zip(vals, rows))
+        return out
+
+    wide = {}
+    for name in ("bw_gemm_fused", "bw_gemm", "quant_gemm_fused",
+                 "quant_gemm"):
+        sums = layer_sums(name, 512)
+        sums["bound_ms"] = 1e3 * max(sums["bytes"] / HBM_BYTES_PER_S,
+                                     sums["ops"] / INT8_OPS_PER_S)
+        wide[name] = sums
+    log(f"[kernels] one layer's seven calls at N=512: {json.dumps(wide)}")
     kernels = []
     for name in KERNELS:
-        rows = [r for r in per_kernel[name] if r["n"] == 4]
-
-        def layer_sum(key, rows=rows):
-            vals = [r[key] for r in rows]
-            if any(v is None for v in vals):
-                return None
-            return sum(v * r["per_layer"] for v, r in zip(vals, rows))
-        bytes_ms = 1e3 * layer_sum("bytes") / HBM_BYTES_PER_S
-        ops_ms = 1e3 * layer_sum("ops") / INT8_OPS_PER_S
+        sums = layer_sums(name, 4)
+        bytes_ms = 1e3 * sums["bytes"] / HBM_BYTES_PER_S
+        ops_ms = 1e3 * sums["ops"] / INT8_OPS_PER_S
         if name in launches:
             count = launches[name]["stats"]["launches"][name]
-        else:
+        elif name in unfused:
             count = unfused[name]["stats"]["unfused"]["launches"][name]
-        source = "bw_gemm.cu" if name in ("bw_gemm_fused", "bw_gemm") \
-            else "bw_gemm_sparse.cu"
+        else:
+            count = api["launches"]["plain"][name]
+        source = {"bw_gemm_fused": "bw_gemm.cu", "bw_gemm": "bw_gemm.cu",
+                  "ent_encode": "encode.cu",
+                  "quant_gemm_fused": "quant_gemm.cu",
+                  "quant_gemm": "quant_gemm.cu"}.get(name,
+                                                     "bw_gemm_sparse.cu")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": replaces[name], "launches": count,
             "max_abs_err": err[name],
-            "ms": layer_sum("ms"), "plain_ms": layer_sum("plain_ms"),
+            "ms": sums["ms"], "plain_ms": sums["plain_ms"],
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": layer_sum("library_ms")})
+            "library_ms": sums["library_ms"]})
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

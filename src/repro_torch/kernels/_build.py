@@ -30,7 +30,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 # library name -> source file under csrc/
-SOURCES = {"bw_gemm": "bw_gemm.cu", "bw_gemm_sparse": "bw_gemm_sparse.cu"}
+SOURCES = {"bw_gemm": "bw_gemm.cu", "bw_gemm_sparse": "bw_gemm_sparse.cu",
+           "encode": "encode.cu", "quant_gemm": "quant_gemm.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

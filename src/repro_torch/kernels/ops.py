@@ -3,6 +3,14 @@ bit-weight GEMM kernels: padding, plane encoding, occupancy masks, the
 magnitude-ordered row permutation, compacted block schedules, dispatch
 and dequantization.
 
+The kernel-level API is the reference's: ``encode_planes`` and
+``plane_density``; ``plan_operand``, whose ``encode_impl='kernel'``
+encodes an EN-T int8 operand with the ``ent_encode`` kernel (B7);
+``bw_gemm`` / ``bw_gemm_fused`` on a ``PlannedOperand`` (B2 / B1) and its
+sparse and pipelined twins (B3-B6); and the parallel-MAC baseline
+``quant_gemm`` / ``quant_gemm_fused`` (B9 / B8), which pad to the
+blocks, call the kernel and slice back.  B is int8 ``[K, N]`` throughout.
+
 Every entry point is configured by one
 :class:`repro_torch.engine.QuantSpec`.  A plan record built here holds the
 same arrays as the reference's (``repro.kernels.ops.plan_dense_weight``),
@@ -24,15 +32,19 @@ from repro_torch.core import encodings as enc
 from repro_torch.core import quant as quantlib
 from repro_torch.engine.spec import QuantSpec
 from . import bw_gemm as _bw
+from . import encode as _enc_kernel
+from . import quant_gemm as _qg
 from . import ref as kref
 
-__all__ = ["PlannedOperand", "plane_block_mask", "plan_operand",
-           "select_block_sizes", "plan_dense_weight", "plan_params",
-           "plan_tree_density", "planned_dense_apply", "quantized_dense",
-           "build_schedule", "pad_schedule", "schedule_stats",
-           "bw_gemm_sparse", "bw_gemm_sparse_fused",
-           "bw_gemm_sparse_pipelined", "bw_gemm_sparse_fused_pipelined",
-           "SPARSE_DENSITY_THRESHOLD", "SCHEDULE_ORDERS", "DISPATCHES"]
+__all__ = ["PlannedOperand", "encode_planes", "plane_block_mask",
+           "plane_density", "plan_operand", "bw_gemm", "bw_gemm_fused",
+           "quant_gemm", "quant_gemm_fused", "select_block_sizes",
+           "plan_dense_weight", "plan_params", "plan_tree_density",
+           "planned_dense_apply", "quantized_dense", "build_schedule",
+           "pad_schedule", "schedule_stats", "bw_gemm_sparse",
+           "bw_gemm_sparse_fused", "bw_gemm_sparse_pipelined",
+           "bw_gemm_sparse_fused_pipelined", "SPARSE_DENSITY_THRESHOLD",
+           "SCHEDULE_ORDERS", "DISPATCHES"]
 
 
 def _pad_to(x: torch.Tensor, mult: int, axis: int) -> torch.Tensor:
@@ -42,6 +54,12 @@ def _pad_to(x: torch.Tensor, mult: int, axis: int) -> torch.Tensor:
     widths = [0, 0] * x.dim()            # F.pad lists the last dim first
     widths[2 * (x.dim() - 1 - axis) + 1] = pad
     return F.pad(x, widths)
+
+
+def encode_planes(a: torch.Tensor, encoding: str = "ent",
+                  bits: int = 8) -> torch.Tensor:
+    """int8 A [M, K] -> digit planes int8 [BW, M, K]."""
+    return kref.encode_planes_ref(a, encoding, bits)
 
 
 # ---------------------------------------------------------------------------
@@ -81,6 +99,13 @@ def plane_block_mask(digits: torch.Tensor, block_m: int,
     bw, m, k = digits.shape
     d = digits.reshape(bw, m // block_m, block_m, k // block_k, block_k)
     return (d != 0).any(dim=4).any(dim=2)
+
+
+def plane_density(digits: torch.Tensor, block_m: int, block_k: int) -> dict:
+    """Fraction of non-skippable blocks per plane (perf introspection)."""
+    mask = plane_block_mask(digits, block_m, block_k)
+    return {f"plane{i}": int(mask[i].sum()) / mask[i].numel()
+            for i in range(mask.shape[0])}
 
 
 # ---------------------------------------------------------------------------
@@ -241,17 +266,28 @@ class PlannedOperand:
         return float(self.mask.to(torch.float32).mean())
 
 
+# plan_operand encode_impl values: the torch oracle, or the ent_encode
+# kernel (B7)
+_ENCODE_IMPLS = ("ref", "kernel")
+
+
 def plan_operand(a_int8: torch.Tensor, encoding: str = "ent",
                  block_m: int = 128, block_k: int = 256,
-                 reorder_rows: bool = True, bits: int = 8,
-                 order: str = "m_major") -> PlannedOperand:
+                 reorder_rows: bool = True, encode_impl: str = "ref",
+                 bits: int = 8, order: str = "m_major") -> PlannedOperand:
     """Pad, magnitude-order the rows of, encode an int8 multiplicand, and
     compact its occupancy mask into a block schedule.
 
-    a_int8: int8 [M, K] (e.g. a transposed weight matrix).  order: the
-    schedule's visit order (SCHEDULE_ORDERS); 'k_major' schedules need
-    the pipelined kernels.  The schedule lands on the operand's device.
+    a_int8: int8 [M, K] (e.g. a transposed weight matrix).  encode_impl:
+    'ref' (the torch oracle) or 'kernel' (the fused EN-T encoder,
+    ``encode.ent_encode``: the kernel on the card, its plain version on
+    the CPU).  order: the schedule's visit order (SCHEDULE_ORDERS);
+    'k_major' schedules need the pipelined kernels.  The schedule lands on
+    the operand's device.
     """
+    if encode_impl not in _ENCODE_IMPLS:
+        raise ValueError(f"encode_impl must be one of {_ENCODE_IMPLS}, got "
+                         f"{encode_impl!r}")
     a = a_int8.to(torch.int8)
     m, k = a.shape
     a = _pad_to(_pad_to(a, block_m, 0), block_k, 1)
@@ -268,8 +304,15 @@ def plan_operand(a_int8: torch.Tensor, encoding: str = "ent",
         row_perm = torch.arange(a.shape[0], dtype=torch.int32,
                                 device=a.device)
     inv_perm = torch.argsort(row_perm).to(torch.int32)
-    digits = kref.encode_planes_ref(a[row_perm.long()], encoding, bits)
-    mask = plane_block_mask(digits, block_m, block_k)
+    a_sorted = a[row_perm.long()]
+    if encode_impl == "kernel" and encoding == "ent" and bits == 8:
+        digits, mask = _enc_kernel.ent_encode(a_sorted, block_m=block_m,
+                                              block_k=block_k)
+    else:
+        # the reference's contract, chosen by argument: the kernel encodes
+        # EN-T int8 only, and any other encoding or width takes the oracle
+        digits = kref.encode_planes_ref(a_sorted, encoding, bits)
+        mask = plane_block_mask(digits, block_m, block_k)
     schedule = torch.from_numpy(build_schedule(
         mask, enc.radix(encoding), order)).to(a.device)
     return PlannedOperand(digits, mask, row_perm, inv_perm, m, k, block_m,
@@ -349,7 +392,7 @@ def _resolve_dispatch(dispatch: str, plan: dict, spec, n_out: int, k: int,
 
 
 # ---------------------------------------------------------------------------
-# PlannedOperand entry points of the sparse kernels
+# PlannedOperand entry points of the dense, sparse and pipelined kernels
 # ---------------------------------------------------------------------------
 # b is int8 [K, N] and the result [M, N] in the operand's original row
 # order, as in the reference; scale / bias are per-row vectors of length M.
@@ -381,8 +424,12 @@ def _kernel_b(planned: PlannedOperand, b: torch.Tensor) -> torch.Tensor:
     """[K, N] activations -> the kernels' contiguous [N, K_pad] rows."""
     k, _ = b.shape
     _check_operand_k(k, planned.k)
-    _check_has_schedule(planned)
     return _pad_to(b.to(torch.int8).t(), planned.block_k, 1).contiguous()
+
+
+def _sparse_b(planned: PlannedOperand, b: torch.Tensor) -> torch.Tensor:
+    _check_has_schedule(planned)
+    return _kernel_b(planned, b)
 
 
 def _unplanned(planned: PlannedOperand, out: torch.Tensor,
@@ -391,11 +438,47 @@ def _unplanned(planned: PlannedOperand, out: torch.Tensor,
 
 
 def _scale_rows(planned: PlannedOperand, scale, bias):
+    for vec, name in ((scale, "scale"), (bias, "bias")):
+        if vec is not None and vec.numel() != planned.m:
+            raise ValueError(
+                f"{name} has {vec.numel()} entries; expected one per row of "
+                f"the planned operand, M={planned.m}")
     m_pad = planned.digits.shape[1]
     rows = _channel_rows(scale, planned.m, m_pad, planned.row_perm)
     if bias is not None:
         bias = _channel_rows(bias, planned.m, m_pad, planned.row_perm)
     return rows, bias
+
+
+def bw_gemm(planned: PlannedOperand, b: torch.Tensor) -> torch.Tensor:
+    """C = A @ B with A pre-planned, through B2: b int8 [K, N] -> int32
+    [M, N]."""
+    _bw._check_devices("bw_gemm", planned.digits, b)
+    bt = _kernel_b(planned, b)
+    out = _bw.bw_gemm(planned.digits, bt, planned.mask,
+                      block_m=planned.block_m, block_k=planned.block_k,
+                      radix=enc.radix(planned.encoding))
+    return _unplanned(planned, out, b.shape[1])
+
+
+def bw_gemm_fused(planned: PlannedOperand, b: torch.Tensor, scale,
+                  bias=None, *, activation=None,
+                  out_dtype=torch.float32) -> torch.Tensor:
+    """C = act((A @ B)_int * scale + bias) with A pre-planned, through B1.
+
+    b: int8 [K, N].  scale / bias: per-row vectors of length M in the
+    operand's original row order (permuted and padded here; epilogue axis
+    'm', no per-column scale).  Returns ``out_dtype`` [M, N].
+    """
+    _bw._check_devices("bw_gemm_fused", planned.digits, b, scale, bias)
+    bt = _kernel_b(planned, b)
+    scale_rows, bias_rows = _scale_rows(planned, scale, bias)
+    out = _bw.bw_gemm_fused(
+        planned.digits, bt, planned.mask, scale_rows, bias_rows,
+        block_m=planned.block_m, block_k=planned.block_k,
+        radix=enc.radix(planned.encoding), activation=activation,
+        epilogue_axis="m")
+    return _unplanned(planned, out, b.shape[1]).to(out_dtype)
 
 
 def bw_gemm_sparse(planned: PlannedOperand, b: torch.Tensor) -> torch.Tensor:
@@ -405,7 +488,7 @@ def bw_gemm_sparse(planned: PlannedOperand, b: torch.Tensor) -> torch.Tensor:
     is not in the schedule costs no read.
     """
     _check_m_major("bw_gemm_sparse", planned)
-    bt = _kernel_b(planned, b)
+    bt = _sparse_b(planned, b)
     out = _bw.bw_gemm_sparse(planned.digits, bt, planned.schedule,
                              block_m=planned.block_m,
                              block_k=planned.block_k)
@@ -416,7 +499,7 @@ def bw_gemm_sparse_fused(planned: PlannedOperand, b: torch.Tensor, scale,
                          bias=None, *, activation=None) -> torch.Tensor:
     """act((A @ B)_int * scale + bias) through the sparse kernel (B3)."""
     _check_m_major("bw_gemm_sparse_fused", planned)
-    bt = _kernel_b(planned, b)
+    bt = _sparse_b(planned, b)
     scale_rows, bias_rows = _scale_rows(planned, scale, bias)
     out = _bw.bw_gemm_sparse_fused(
         planned.digits, bt, planned.schedule, scale_rows, bias_rows,
@@ -429,7 +512,7 @@ def bw_gemm_sparse_pipelined(planned: PlannedOperand,
                              b: torch.Tensor) -> torch.Tensor:
     """C = A @ B through the pipelined kernel (B6), either schedule order;
     bit-identical to bw_gemm_sparse on the same mask."""
-    bt = _kernel_b(planned, b)
+    bt = _sparse_b(planned, b)
     out = _bw.bw_gemm_sparse_pipelined(planned.digits, bt, planned.schedule,
                                        block_m=planned.block_m,
                                        block_k=planned.block_k)
@@ -441,13 +524,69 @@ def bw_gemm_sparse_fused_pipelined(planned: PlannedOperand, b: torch.Tensor,
                                    activation=None) -> torch.Tensor:
     """bw_gemm_sparse_fused through the pipelined kernel (B5), either
     schedule order."""
-    bt = _kernel_b(planned, b)
+    bt = _sparse_b(planned, b)
     scale_rows, bias_rows = _scale_rows(planned, scale, bias)
     out = _bw.bw_gemm_sparse_fused_pipelined(
         planned.digits, bt, planned.schedule, scale_rows, bias_rows,
         block_m=planned.block_m, block_k=planned.block_k,
         activation=activation)
     return _unplanned(planned, out, b.shape[1])
+
+
+# ---------------------------------------------------------------------------
+# The parallel-MAC baseline (B9 / B8)
+# ---------------------------------------------------------------------------
+
+def _padded_operands(a, b, block_m: int, block_n: int, block_k: int):
+    m, k = a.shape
+    k2, n = b.shape
+    if k != k2:
+        raise ValueError(f"inner-dim mismatch: a has K={k} columns but b "
+                         f"has K={k2} rows")
+    a = _pad_to(_pad_to(a.to(torch.int8), block_m, 0), block_k, 1)
+    b = _pad_to(_pad_to(b.to(torch.int8), block_k, 0), block_n, 1)
+    return a.contiguous(), b.contiguous(), m, n
+
+
+def quant_gemm(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 128,
+               block_n: int = 128, block_k: int = 256) -> torch.Tensor:
+    """Baseline int8 GEMM through B9: a [M, K] @ b [K, N] -> int32 [M, N]
+    (pads to block multiples, slices back)."""
+    a, b, m, n = _padded_operands(a, b, block_m, block_n, block_k)
+    out = _qg.quant_gemm(a, b, block_m=block_m, block_n=block_n,
+                         block_k=block_k)
+    return out[:m, :n]
+
+
+def _channel_cols(vec: torch.Tensor, name: str, n: int,
+                  block_n: int) -> torch.Tensor:
+    """[N] per-output-channel vector -> a padded [1, N_pad] row."""
+    if vec.numel() != n:
+        raise ValueError(f"quant_gemm_fused: {name} has {vec.numel()} "
+                         f"entries; expected one per output column, N={n}")
+    return _pad_to(vec.to(torch.float32).reshape(1, n), block_n,
+                   1).contiguous()
+
+
+def quant_gemm_fused(a: torch.Tensor, b: torch.Tensor, scale, bias=None, *,
+                     activation=None, block_m: int = 128,
+                     block_n: int = 128, block_k: int = 256,
+                     out_dtype=torch.float32) -> torch.Tensor:
+    """Baseline int8 GEMM + fused dequant epilogue through B8 (pads,
+    slices back).
+
+    scale / bias: per-output-channel vectors of length N (epilogue axis
+    'n').  Returns ``out_dtype`` [M, N].
+    """
+    a, b, m, n = _padded_operands(a, b, block_m, block_n, block_k)
+    scale = _channel_cols(scale, "scale", n, block_n)
+    if bias is not None:
+        bias = _channel_cols(bias, "bias", n, block_n)
+    out = _qg.quant_gemm_fused(a, b, scale, bias, activation=activation,
+                               epilogue_axis="n", out_dtype=out_dtype,
+                               block_m=block_m, block_n=block_n,
+                               block_k=block_k)
+    return out[:m, :n]
 
 
 def planned_dense_apply(plan: dict, x: torch.Tensor, spec, n_out: int, *,

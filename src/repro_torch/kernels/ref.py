@@ -9,9 +9,18 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import encodings as enc
-from repro_torch.core.bw_ref import weighted_plane_sum
+from repro_torch.core.bw_ref import exact_matmul, weighted_plane_sum
 
-__all__ = ["encode_planes_ref", "bw_gemm_ref", "bw_gemm_masked_ref"]
+__all__ = ["quant_gemm_ref", "encode_planes_ref", "bw_gemm_ref",
+           "bw_gemm_masked_ref"]
+
+
+def quant_gemm_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """int8 x int8 -> int32 GEMM oracle (the parallel-MAC baseline).
+
+    a: int [M, K]; b: int [K, N].
+    """
+    return exact_matmul(a, b).to(torch.int32)
 
 
 def encode_planes_ref(a: torch.Tensor, encoding: str = "ent",
