@@ -19,19 +19,28 @@ Phases (any failure exits non-zero and prints no result line):
    planned at planes=3, masks with a False block over non-zero digits.
    Sparse (B3 bw_gemm_sparse_fused, B4 bw_gemm_sparse) and pipelined (B5
    bw_gemm_sparse_fused_pipelined, B6 bw_gemm_sparse_pipelined), N in
-   {1, 4}: seeded weights at planes=2, schedules in both orders built from
-   masks with a False block over non-zero digits, and from a mask with an
-   all-empty row block as well (a sentinel).  B7 ent_encode, blocks
-   128 x 256: uniform int8 and planes=3 weights at the three shapes, and
-   the 256 int8 values tiled into one block; digits and mask must be
-   bit-identical.  B9 quant_gemm (the weight as A [M, K], T tokens as B
+   {1, 2, 3, 4, 8}: seeded weights at planes=2, schedules in both orders
+   built from masks with a False block over non-zero digits, and from a
+   mask with an all-empty row block as well (a sentinel); then, at N=3,
+   an all-sentinel mask and a schedule shorter than the grid, at N=4 a
+   planes=3 (density 0.75) plan and two calls in a row on one stream
+   with different activations.  The cases must split some m-block row's
+   entries across CTAs (bw_gemm.pipelined_ranges over the grid).  B4/B3
+   against their plain versions, B6/B5 on both orders against the same
+   plain versions and bit for bit against B4/B3.  torch.profiler must see
+   exactly one device operation (a pipelined_kernel) per B5 and per B6
+   call, on both orders; the wrapper's shared-memory layout must equal
+   the library's over a grid of block shapes and widths.  B7 ent_encode,
+   blocks 128 x 256: uniform int8 and planes=3 weights at the three
+   shapes, and the 256 int8 values tiled into one block; digits and mask
+   must be bit-identical.  B9 quant_gemm (the weight as A [M, K], T tokens as B
    [K, T]) and B8 quant_gemm_fused (T tokens as A [T, K], the weight as B
    [K, M]), T in {1, 4, 512}: B8 in both epilogue axes, with and without a
    bias, under every activation, and in bfloat16.  Integer results, and
    fused results without an activation, must be bit-identical to the
    plain versions; with an activation within rtol 1e-5, atol 1e-6 (the
    card's expf/tanhf against torch's own kernels, and gelu's 1 + tanh
-   cancellation for negative inputs); B5 on either order must equal B3.
+   cancellation for negative inputs).
    Each kernel is timed L2-cold (``cuda_ms``, the median of 24 calls),
    with its plain version, and torch._int_mm on the undecomposed int8
    weight as a yardstick the port never calls; B3/B4 on m_major
@@ -298,8 +307,70 @@ def read_counts() -> dict:
     return {name: fn.launches for name, fn in kernel_fns().items()}
 
 
+SPARSE_NS = (1, 2, 3, 4, 8)          # phase 3's widths for B3-B6
+ACTS = (None, "silu", "gelu", "relu2")
+
+
+def split_rows(sched, n: int, ctas: int) -> int:
+    """m-block rows of a pipelined call whose live entries fall in more
+    than one CTA's range (bw_gemm.pipelined_ranges)."""
+    from repro_torch.kernels import bw_gemm as bwk
+    s = sched.cpu()
+    steps = s.shape[0]
+    owner = {}
+    for c, (lo, hi) in enumerate(bwk.pipelined_ranges(
+            bwk.pipelined_work(steps, n), ctas)):
+        for f in range(lo, hi):
+            row, weight = int(s[f % steps, 1]), int(s[f % steps, 3])
+            if weight:
+                owner.setdefault((f // steps, row), set()).add(c)
+    return sum(len(cs) > 1 for cs in owner.values())
+
+
+def device_ops(fn) -> dict:
+    """Name -> count of the device operations (kernels, memsets, copies)
+    that one fn() call queues, by torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: e.count for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")}
+
+
+def layout_agreement() -> int:
+    """The pipelined kernels' shared-memory layout as the wrapper computes
+    it (bw_gemm._pipelined_layout) against the library's own
+    (bw_gemm_sparse_pipelined_layout), over a grid of block shapes and
+    widths: both must accept and refuse the same cases, with the same
+    layout.  Returns the number of cases."""
+    from repro_torch.kernels import bw_gemm as bwk
+    cases = 0
+    for n in (1, 2, 3, 4, 8, 16):
+        for bm in (8, 16, 24, 64, 128, 256, 384, 512, 1024, 2048, 4096):
+            for bk in (16, 32, 48, 128, 256, 384, 512, 1024, 2048, 4096,
+                       8192):
+                try:
+                    want = bwk._pipelined_layout(n, bm, bk)
+                except ValueError:
+                    want = None
+                got = bwk.pipelined_layout_of_kernel(n, bm, bk)
+                if got != want:
+                    raise AssertionError(
+                        f"pipelined layout at N={n} block_m={bm} "
+                        f"block_k={bk}: kernel {got}, wrapper {want}")
+                cases += 1
+    return cases
+
+
 def sparse_cases(dev, log):
-    """Phase 3, B3-B6: against their plain versions and B3, timed."""
+    """Phase 3, B3-B6: B4 and B3 against their plain versions on m_major
+    schedules; B6 and B5 on both orders against the same plain versions
+    and bit for bit against B4 and B3; timed."""
     import torch
     from repro_torch.core import quant
     from repro_torch.kernels import bw_gemm as bwk
@@ -309,6 +380,7 @@ def sparse_cases(dev, log):
     per_kernel = {name: [] for name in SPARSE}
     err = dict.fromkeys(SPARSE, 0.0)
     kw = dict(block_m=128, block_k=256)
+    cases = 0
 
     def check(name, got, want, exact, what):
         torch.cuda.synchronize()
@@ -319,10 +391,67 @@ def sparse_cases(dev, log):
         if not ok:
             raise AssertionError(f"{name} != {what}: max |diff| {diff}")
 
-    for m, k, per_layer in PATH_SHAPES:
+    def schedules(mask):
+        return tuple(torch.from_numpy(ops.build_schedule(mask, 4, order)).to(
+            dev) for order in ops.SCHEDULE_ORDERS)
+
+    def hold(where, digits, b, scheds, scale, bias, sx_cols):
+        """B3-B6 on one operand pair, every activation."""
+        nonlocal cases
+        sm = scheds[0]
+        want = bwk.bw_gemm_sparse_plain(digits, b, sm, **kw)
+        b4 = bwk.bw_gemm_sparse(digits, b, sm, **kw)
+        check("bw_gemm_sparse", b4, want, True, f"plain at {where}")
+        for order, sched in zip(ops.SCHEDULE_ORDERS, scheds):
+            b6 = bwk.bw_gemm_sparse_pipelined(digits, b, sched, **kw)
+            check("bw_gemm_sparse_pipelined", b6, want, True,
+                  f"plain at {where} {order}")
+            check("bw_gemm_sparse_pipelined", b6, b4, True,
+                  f"bw_gemm_sparse at {where} {order}")
+        for act in ACTS:
+            args = (scale, bias if act else None, sx_cols)
+            want = bwk.bw_gemm_sparse_fused_plain(
+                digits, b, sm, *args, activation=act, **kw)
+            b3 = bwk.bw_gemm_sparse_fused(digits, b, sm, *args,
+                                          activation=act, **kw)
+            check("bw_gemm_sparse_fused", b3, want, act is None,
+                  f"plain at {where} act={act}")
+            for order, sched in zip(ops.SCHEDULE_ORDERS, scheds):
+                b5 = bwk.bw_gemm_sparse_fused_pipelined(
+                    digits, b, sched, *args, activation=act, **kw)
+                check("bw_gemm_sparse_fused_pipelined", b5, want,
+                      act is None, f"plain at {where} {order} act={act}")
+                check("bw_gemm_sparse_fused_pipelined", b5, b3, True,
+                      f"bw_gemm_sparse_fused at {where} {order} "
+                      f"act={act}")
+        cases += 1
+
+    def activations(n, k, k_pad, planes):
+        x = torch.randn((n, k), generator=gen, device=dev)
+        qx, sx = quant.quantize_to_planes(x, planes, axis=-1)
+        b = torch.zeros((n, k_pad), dtype=torch.int8, device=dev)
+        b[:, :k] = qx
+        return b, sx.reshape(1, -1).contiguous()
+
+    def plan(m, k, planes):
         w = torch.randn((k, m), generator=gen, device=dev)
-        qw, sw = quant.quantize_to_planes(w, 2, axis=0)
+        qw, sw = quant.quantize_to_planes(w, planes, axis=0)
         planned = ops.plan_operand(qw.t(), "ent", 128, 256)
+        m_pad = planned.digits.shape[1]
+        scale = ops._channel_rows(sw.reshape(-1), m, m_pad, planned.row_perm)
+        return qw, planned, scale
+
+    grids = {(n, fused): bwk._pipelined_ctas(dev, n, 128, 256, fused)
+             for n in SPARSE_NS for fused in (False, True)}
+    for n in SPARSE_NS:
+        lay = bwk.pipelined_layout_of_kernel(n, 128, 256)
+        log(f"  pipelined layout at N={n}, blocks 128 x 256: {lay}; grid "
+            f"B6 {grids[n, False]} CTAs, B5 {grids[n, True]} CTAs")
+    log(f"  pipelined layout: wrapper == kernel on "
+        f"{layout_agreement()} (N, block_m, block_k) cases")
+    split_seen = {}
+    for m, k, per_layer in PATH_SHAPES:
+        qw, planned, scale = plan(m, k, 2)
         digits = planned.digits
         m_pad, k_pad = digits.shape[1], digits.shape[2]
         masked = planned.mask.clone()
@@ -334,56 +463,89 @@ def sparse_cases(dev, log):
             masked[p, 0, kk] = False
         sentinel = masked.clone()
         sentinel[:, 1, :] = False              # row block 1: a sentinel
-        scale = ops._channel_rows(sw.reshape(-1), m, m_pad,
-                                  planned.row_perm)
         bias = torch.randn((m_pad, 1), generator=gen, device=dev)
         wq_pad = torch.zeros((m_pad, k_pad), dtype=torch.int8, device=dev)
         wq_pad[:m, :k] = qw.t()
-        for n in (1, 4):
-            x = torch.randn((n, k), generator=gen, device=dev)
-            qx, sx = quant.quantize_to_planes(x, 2, axis=-1)
-            b = torch.zeros((n, k_pad), dtype=torch.int8, device=dev)
-            b[:, :k] = qx
-            sx_cols = sx.reshape(1, -1).contiguous()
-            scheds = {}
+        timed = {}
+        for n in SPARSE_NS:
+            b, sx_cols = activations(n, k, k_pad, 2)
             for mask_name, mask in (("masked", masked),
                                     ("sentinel", sentinel)):
-                where = f"M={m_pad} K={k_pad} N={n} {mask_name}"
-                sm, sk = (torch.from_numpy(ops.build_schedule(
-                    mask, 4, order)).to(dev) for order in ops.SCHEDULE_ORDERS)
-                scheds[mask_name] = (sm, sk)
-                want = bwk.bw_gemm_sparse_plain(digits, b, sm, **kw)
-                check("bw_gemm_sparse",
-                      bwk.bw_gemm_sparse(digits, b, sm, **kw), want, True,
-                      f"plain at {where}")
-                for order, sched in zip(ops.SCHEDULE_ORDERS, (sm, sk)):
-                    check("bw_gemm_sparse_pipelined",
-                          bwk.bw_gemm_sparse_pipelined(digits, b, sched,
-                                                       **kw),
-                          want, True, f"plain at {where} {order}")
-                for act in (None, "silu", "gelu", "relu2"):
-                    args = (scale, bias if act else None, sx_cols)
-                    want = bwk.bw_gemm_sparse_fused_plain(
-                        digits, b, sm, *args, activation=act, **kw)
-                    b3 = bwk.bw_gemm_sparse_fused(digits, b, sm, *args,
-                                                  activation=act, **kw)
-                    check("bw_gemm_sparse_fused", b3, want, act is None,
-                          f"plain at {where} act={act}")
-                    for order, sched in zip(ops.SCHEDULE_ORDERS, (sm, sk)):
-                        b5 = bwk.bw_gemm_sparse_fused_pipelined(
-                            digits, b, sched, *args, activation=act, **kw)
-                        check("bw_gemm_sparse_fused_pipelined", b5, want,
-                              act is None, f"plain at {where} {order} "
-                              f"act={act}")
-                        torch.cuda.synchronize()
-                        if not torch.equal(b5, b3):
-                            raise AssertionError(
-                                f"bw_gemm_sparse_fused_pipelined on {order}"
-                                f" != bw_gemm_sparse_fused at {where} "
-                                f"act={act}")
+                scheds = schedules(mask)
+                hold(f"M={m_pad} K={k_pad} N={n} {mask_name}", digits, b,
+                     scheds, scale, bias, sx_cols)
+                for order, sched in zip(ops.SCHEDULE_ORDERS, scheds):
+                    split_seen[order] = split_seen.get(order, 0) + split_rows(
+                        sched, n, grids[n, True])
+                if mask_name == "masked":
+                    timed[n] = (b, sx_cols, scheds)
+        # an all-sentinel mask; a schedule shorter than the grid (a few
+        # live blocks); two calls in a row on one stream
+        empty = torch.zeros_like(masked)
+        few = torch.zeros_like(masked)
+        few[0, ::5, 0] = True
+        few[1, -1, -1] = True
+        b3n, sx3 = activations(3, k, k_pad, 2)
+        for name, mask in (("all-sentinel", empty), ("short", few)):
+            scheds = schedules(mask)
+            if name == "short" and not all(
+                    s.shape[0] < grids[3, f] for s in scheds
+                    for f in (False, True)):
+                raise AssertionError(
+                    f"the short schedule ({scheds[0].shape[0]} entries) is "
+                    f"not shorter than the grid")
+            hold(f"M={m_pad} K={k_pad} N=3 {name} (L={scheds[0].shape[0]})",
+                 digits, b3n, scheds, scale, bias, sx3)
+        b_a, sx_a = timed[4][:2]
+        b_b, sx_b = activations(4, k, k_pad, 2)
+        sm, sk = timed[4][2]
+        for order, sched in zip(ops.SCHEDULE_ORDERS, (sm, sk)):
+            r6 = [bwk.bw_gemm_sparse_pipelined(digits, bb, sched, **kw)
+                  for bb in (b_a, b_b)]
+            r5 = [bwk.bw_gemm_sparse_fused_pipelined(
+                digits, bb, sched, scale, bias, sx, activation="silu", **kw)
+                for bb, sx in ((b_a, sx_a), (b_b, sx_b))]
+            for i, (bb, sx) in enumerate(((b_a, sx_a), (b_b, sx_b))):
+                what = f"call {i + 1} of two in a row at M={m_pad} {order}"
+                check("bw_gemm_sparse_pipelined", r6[i],
+                      bwk.bw_gemm_sparse(digits, bb, sm, **kw), True, what)
+                check("bw_gemm_sparse_fused_pipelined", r5[i],
+                      bwk.bw_gemm_sparse_fused(digits, bb, sm, scale, bias,
+                                               sx, activation="silu", **kw),
+                      True, what)
+        cases += 1
+        # planes=3: density 0.75, both orders
+        _, planned3, scale3 = plan(m, k, 3)
+        b43, sx43 = activations(4, k, k_pad, 3)
+        hold(f"M={m_pad} K={k_pad} N=4 planes=3", planned3.digits, b43,
+             schedules(planned3.mask), scale3, bias, sx43)
+        del planned3
 
-            # timing, L2-cold, on the masked case's schedules
-            sm, sk = scheds["masked"]
+        # one device operation a call: B5 and B6 on both orders
+        if m == PATH_SHAPES[0][0] and k == PATH_SHAPES[0][1]:
+            b, sx_cols, scheds = timed[4]
+            for order, sched in zip(ops.SCHEDULE_ORDERS, scheds):
+                for name, call in (
+                        ("bw_gemm_sparse_pipelined",
+                         lambda: bwk.bw_gemm_sparse_pipelined(
+                             digits, b, sched, **kw)),
+                        ("bw_gemm_sparse_fused_pipelined",
+                         lambda: bwk.bw_gemm_sparse_fused_pipelined(
+                             digits, b, sched, scale, bias, sx_cols,
+                             activation="silu", **kw))):
+                    ops_seen = device_ops(call)
+                    log(f"  {name} {order}: device operations a call "
+                        f"{ops_seen}")
+                    if sum(ops_seen.values()) != 1 or not all(
+                            "pipelined_kernel" in key for key in ops_seen):
+                        raise AssertionError(
+                            f"{name} on {order}: {ops_seen} device "
+                            f"operations a call, expected one "
+                            f"pipelined_kernel")
+
+        # timing, L2-cold, on the masked case's schedules
+        for n in (1, 4):
+            b, sx_cols, (sm, sk) = timed[n]
             b8 = torch.zeros((8, k_pad), dtype=torch.int8, device=dev)
             b8[:n] = b
             wq_cold = cold_copies(wq_pad)
@@ -422,6 +584,12 @@ def sparse_cases(dev, log):
                     f"_int_mm {lib_ms:.4f} ms  bound "
                     f"{row['bound_ms']:.4f} ms")
             del d_cold
+    if not all(split_seen.get(order) for order in ops.SCHEDULE_ORDERS):
+        raise AssertionError(f"no case split an m-block row's entries "
+                             f"across CTAs: {split_seen}")
+    log(f"  B3-B6: {cases} cases bit-exact (B5 == B3, B6 == B4 on both "
+        f"orders); m-block rows split across CTAs, summed over the main "
+        f"cases: {split_seen}")
     return per_kernel, err
 
 
@@ -685,7 +853,7 @@ def profile_steps(eng, dev, steps: int = 3) -> dict:
     kern_us = {k: sum(dev_us(e) for e in kernels if k in e.key)
                for k in ("bw_gemm_fused_kernel", "bw_gemm_i32_kernel",
                          "sparse_fused_kernel", "sparse_i32_kernel",
-                         "pipelined_kernel", "epilogue_kernel")}
+                         "pipelined_kernel")}
     top = sorted(kernels, key=dev_us, reverse=True)[:12]
     return {"steps": steps,
             "device_ms_per_step": total_us / 1e3 / steps,

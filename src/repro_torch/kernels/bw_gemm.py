@@ -27,6 +27,7 @@ Each counts its kernel launches in its ``launches`` attribute.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
@@ -39,17 +40,31 @@ __all__ = ["bw_gemm", "bw_gemm_fused", "bw_gemm_plain",
            "bw_gemm_sparse_plain", "bw_gemm_sparse_fused_plain",
            "bw_gemm_sparse_pipelined_plain",
            "bw_gemm_sparse_fused_pipelined_plain", "EPILOGUE_ACTIVATIONS",
-           "SCHED_COLS"]
+           "SCHED_COLS", "pipelined_grid", "pipelined_ranges",
+           "pipelined_work"]
+
+
+def _gelu_tanh(x):
+    """jax.nn.gelu's default tanh form as it computes it: its constants
+    rounded to x's dtype, one rounding an op (in bfloat16 too)."""
+    beta = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype,
+                        device=x.device)
+    kappa = torch.tensor(0.044715, dtype=x.dtype, device=x.device)
+    return x * (0.5 * (1.0 + torch.tanh(beta * (x + kappa * x ** 3))))
+
 
 # Activations the fused epilogue can apply on the dequantized accumulator,
-# in the reference's formulas.  silu is jax.nn.silu's x * sigmoid(x) with
-# the sigmoid as 1 / (1 + exp(-x)) op by op: XLA rounds a bf16 sigmoid
-# after each step, and the kernel epilogue computes the same steps in
-# float32.  gelu is the tanh form, jax.nn.gelu's default.
+# in the reference's formulas, op by op: silu is jax.nn.silu's x *
+# sigmoid(x) with the sigmoid as 1 / (1 + exp(-x)), gelu the tanh form
+# (jax.nn.gelu's default).  On every finite bfloat16 input each equals
+# the reference wherever the reference's result is a normal number; XLA
+# flushes subnormal results (and a subnormal sigmoid) to zero, torch does
+# not (tests/test_torch_activations.py).  The kernel epilogue computes the
+# same steps in float32.
 EPILOGUE_ACTIVATIONS = {
     None: lambda x: x,
     "silu": lambda x: x * (1.0 / (1.0 + torch.exp(-x))),
-    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "gelu": _gelu_tanh,
     "relu2": lambda x: torch.square(F.relu(x)),
 }
 
@@ -406,9 +421,13 @@ def _sparse_lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         for fn, n_ptr, n_int in (("bw_gemm_sparse_i32", 4, 8),
                                  ("bw_gemm_sparse_fused", 7, 9),
-                                 ("bw_gemm_sparse_pipelined_i32", 4, 9),
+                                 ("bw_gemm_sparse_pipelined_i32", 5, 9),
                                  ("bw_gemm_sparse_fused_pipelined", 8, 10)):
             getattr(lib, fn).argtypes = [p] * n_ptr + [i] * n_int + [p]
+            getattr(lib, fn).restype = i
+        for fn, n_int in (("bw_gemm_sparse_pipelined_layout", 3),
+                          ("bw_gemm_sparse_pipelined_per_sm", 4)):
+            getattr(lib, fn).argtypes = [i] * n_int + [p]
             getattr(lib, fn).restype = i
         lib._argtypes_set = True
     return lib
@@ -420,22 +439,142 @@ def _check_float32(fn: str, **vectors):
             raise TypeError(f"{fn}: {name} must be float32, got {t.dtype}")
 
 
-def _per_cta(steps: int, device) -> int:
-    """Schedule entries a pipelined CTA walks: about four CTAs an SM."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, -(-steps // (4 * sms)))
+# The pipelined kernels' shared memory (csrc/bw_gemm_sparse.cu
+# pipelined_layout, which _pipelined_layout mirrors): a ring of 2-4 stages,
+# each a row tile of one plane block (at most 128 rows, one 16-row mma
+# tile a warp, and 64 KB; rows padded by 16 bytes) and an activation slot
+# [NT, block_k + 16], and an int32 accumulator panel [window, block_m, NT]
+# of at most 64 KB, a window being up to 32 schedule entries; up to
+# 227 KB, an H100 CTA's opt-in limit.
+_PIPE_MAX_SMEM = 232448
+_PIPE_TILE_BYTES = 64 * 1024
+_PIPE_PANEL_BYTES = 64 * 1024
+_PIPE_MAX_STAGES = 4
+_PIPE_MAX_WINDOW = 32
+_PIPE_MMA_ROWS, _PIPE_MMA_K, _PIPE_WARPS = 16, 32, 8
+PIPELINED_LAYOUT_FIELDS = ("tile_rows", "tiles", "window", "stages",
+                           "stage_bytes", "b_bytes", "smem")
 
 
-def _check_pipelined(fn: str, block_k: int, n: int, block_m: int):
-    cpk = block_k // 16
-    lanes = min(cpk, 32)
-    if lanes & (lanes - 1) or cpk % lanes:
-        raise ValueError(f"{fn}: block_k={block_k} must be 16 times a power "
-                         f"of two below 32, or a multiple of 512")
-    nt = 1 if n <= 1 else 2 if n <= 2 else 4 if n <= 4 else 8
-    if nt * block_k + 4 * nt * block_m > 48 * 1024:
-        raise ValueError(f"{fn}: block_m={block_m}, block_k={block_k} need "
-                         f"more than 48 KB of shared memory")
+def _nt_for(n: int) -> int:
+    """The kernels' column tile: N columns are taken NT at a time."""
+    return 1 if n <= 1 else 2 if n <= 2 else 4 if n <= 4 else 8
+
+
+def _pipelined_layout(n: int, block_m: int, block_k: int) -> dict:
+    """How a pipelined call of N columns sits in a CTA's shared memory
+    (PIPELINED_LAYOUT_FIELDS), as ``pipelined_layout`` in
+    csrc/bw_gemm_sparse.cu computes it; ValueError for what it refuses."""
+    nt = _nt_for(n)
+    if (block_m <= 0 or block_m % _PIPE_MMA_ROWS or block_k <= 0
+            or block_k % _PIPE_MMA_K):
+        raise ValueError(f"block_m={block_m} must be a positive multiple of "
+                         f"{_PIPE_MMA_ROWS} and block_k={block_k} of "
+                         f"{_PIPE_MMA_K} (whole int8 mma tiles)")
+    # the largest power of two dividing block_m, one mma tile a warp at most
+    rows = min(block_m & -block_m, _PIPE_WARPS * _PIPE_MMA_ROWS)
+    while rows > _PIPE_MMA_ROWS and rows * block_k > _PIPE_TILE_BYTES:
+        rows >>= 1
+    window = min(_PIPE_MAX_WINDOW, _PIPE_PANEL_BYTES // (block_m * nt * 4))
+    if window < 1:
+        raise ValueError(f"block_m={block_m} at {nt} columns overflows the "
+                         f"{_PIPE_PANEL_BYTES}-byte accumulator panel")
+    stage, b_slot = rows * (block_k + 16), nt * (block_k + 16)
+    panel = window * block_m * nt * 4
+    stages = min(_PIPE_MAX_STAGES,
+                 (_PIPE_MAX_SMEM - panel) // (stage + b_slot))
+    if stages < 2:
+        raise ValueError(f"block_m={block_m}, block_k={block_k} need more "
+                         f"than {_PIPE_MAX_SMEM} bytes of shared memory for "
+                         f"two stages and the panel")
+    return dict(zip(PIPELINED_LAYOUT_FIELDS,
+                    (rows, block_m // rows, window, stages, stage, b_slot,
+                     stages * (stage + b_slot) + panel)))
+
+
+def pipelined_layout_of_kernel(n: int, block_m: int, block_k: int):
+    """The layout csrc/bw_gemm_sparse.cu computes for the same problem
+    (PIPELINED_LAYOUT_FIELDS), or None where it refuses it: the card-side
+    twin of :func:`_pipelined_layout`, which ``chip_smoke.py`` holds it
+    against.  Builds the library; launches nothing."""
+    out = (ctypes.c_int * len(PIPELINED_LAYOUT_FIELDS))()
+    if _sparse_lib().bw_gemm_sparse_pipelined_layout(n, block_m, block_k,
+                                                     out) != 0:
+        return None
+    return dict(zip(PIPELINED_LAYOUT_FIELDS, out))
+
+
+def _check_pipelined(fn: str, block_k: int, n: int, block_m: int) -> dict:
+    try:
+        return _pipelined_layout(n, block_m, block_k)
+    except ValueError as e:
+        raise ValueError(f"{fn}: {e}") from None
+
+
+def pipelined_work(steps: int, n: int) -> int:
+    """Flat walk positions of a pipelined call: every schedule entry once
+    for each column tile of NT columns."""
+    return -(-n // _nt_for(n)) * steps
+
+
+def pipelined_grid(sms: int, per_sm: int) -> int:
+    """CTAs of a pipelined call: every CTA the card holds at once (its SMs
+    times the CTAs an SM holds at the kernel's shared memory), since the
+    call is one cooperative launch whose CTAs meet at grid barriers."""
+    if sms < 1 or per_sm < 1:
+        raise ValueError(f"the card holds no pipelined CTA ({sms} SMs x "
+                         f"{per_sm} CTAs an SM)")
+    return sms * per_sm
+
+
+def pipelined_ranges(work: int, ctas: int) -> list:
+    """[begin, end) of the flat walk positions each CTA of a pipelined
+    call takes (the kernel computes the same bounds): CTA c of ``ctas``
+    takes [c * work // ctas, (c + 1) * work // ctas), so the ranges are
+    contiguous, in order, cover every position once and differ in length
+    by at most one (ctas - work of them are empty when work < ctas)."""
+    if work < 0 or ctas < 1:
+        raise ValueError(f"pipelined_ranges: work={work}, ctas={ctas}")
+    return [(c * work // ctas, (c + 1) * work // ctas) for c in range(ctas)]
+
+
+# (device index, NT, block_m, block_k, fused) -> the cooperative grid,
+# queried once per device and problem shape
+_GRIDS: dict = {}
+
+# (device index, stream) -> the pipelined kernels' int32 workspace.  It is
+# zero between calls: a call sums into it and zeroes what it read, so no
+# call pays for a memset or a barrier after one.  One per stream, since
+# calls on one stream never overlap.
+_WORKSPACES: dict = {}
+
+
+def _pipelined_workspace(stream, numel: int) -> torch.Tensor:
+    key = (stream.device.index, stream.cuda_stream)
+    ws = _WORKSPACES.get(key)
+    if ws is None or ws.numel() < numel:
+        grown = max(numel, 0 if ws is None else 2 * ws.numel())
+        ws = _WORKSPACES[key] = torch.zeros(grown, dtype=torch.int32,
+                                            device=stream.device)
+    return ws
+
+
+def _pipelined_ctas(device, n: int, block_m: int, block_k: int,
+                    fused: bool) -> int:
+    key = (device.index if device.index is not None
+           else torch.cuda.current_device(), _nt_for(n), block_m, block_k,
+           fused)
+    grid = _GRIDS.get(key)
+    if grid is None:
+        per_sm = ctypes.c_int(0)
+        with torch.cuda.device(key[0]):
+            err = _sparse_lib().bw_gemm_sparse_pipelined_per_sm(
+                n, block_m, block_k, int(fused), ctypes.byref(per_sm))
+            _raise_on("bw_gemm_sparse_pipelined_per_sm", err)
+            sms = torch.cuda.get_device_properties(
+                key[0]).multi_processor_count
+        grid = _GRIDS[key] = pipelined_grid(sms, per_sm.value)
+    return grid
 
 
 def _sparse_dims(digits, b, schedule):
@@ -511,8 +650,10 @@ def bw_gemm_sparse_pipelined(digits, b, schedule, *, block_m: int = 128,
     bit-identical to bw_gemm_sparse on the same mask.
 
     schedule: int32 [L, 9] (every SCHED_COLS column).  One call is one
-    counted launch (the kernel's workspace memset included).  Replaces
-    the reference's ``bw_gemm_sparse_pipelined``.
+    cooperative launch (it walks the schedule into the stream's zeroed
+    int32 workspace and, after a grid barrier, copies the sums out and
+    zeroes the workspace again) and one counted launch.  Replaces the
+    reference's ``bw_gemm_sparse_pipelined``.
     """
     if digits.device.type != "cuda":
         return bw_gemm_sparse_pipelined_plain(
@@ -525,11 +666,13 @@ def bw_gemm_sparse_pipelined(digits, b, schedule, *, block_m: int = 128,
     out = torch.empty((dims[3], dims[5]), dtype=torch.int32,
                       device=digits.device)
     with torch.cuda.device(digits.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream()
+        ws = _pipelined_workspace(stream, out.numel())
         err = _sparse_lib().bw_gemm_sparse_pipelined_i32(
             digits.data_ptr(), b.data_ptr(), schedule.data_ptr(),
-            out.data_ptr(), *dims, block_m, block_k,
-            _per_cta(dims[0], digits.device), stream)
+            ws.data_ptr(), out.data_ptr(), *dims, block_m, block_k,
+            _pipelined_ctas(digits.device, dims[5], block_m, block_k, False),
+            stream.cuda_stream)
     _raise_on(fn, err)
     bw_gemm_sparse_pipelined.launches += 1
     return out
@@ -542,9 +685,9 @@ def bw_gemm_sparse_fused_pipelined(digits, b, schedule, scale, bias=None,
     """bw_gemm_sparse_fused on a schedule in either order, bit-identical
     to it on the same mask.
 
-    schedule: int32 [L, 9].  One call is one counted launch, though the
-    kernel takes two on the card (the walk into an int32 workspace, then
-    the epilogue).  Replaces the reference's
+    schedule: int32 [L, 9].  One call is one cooperative launch (as
+    :func:`bw_gemm_sparse_pipelined`, with the epilogue where the copy
+    was) and one counted launch.  Replaces the reference's
     ``bw_gemm_sparse_fused_pipelined``.
     """
     if digits.device.type != "cuda":
@@ -561,18 +704,17 @@ def bw_gemm_sparse_fused_pipelined(digits, b, schedule, scale, bias=None,
                 scale_n)
     _check_pipelined(fn, block_k, b.shape[0], block_m)
     dims = _sparse_dims(digits, b, schedule)
-    ws = torch.empty((dims[3], dims[5]), dtype=torch.int32,
-                     device=digits.device)
     out = torch.empty((dims[3], dims[5]), dtype=torch.float32,
                       device=digits.device)
     with torch.cuda.device(digits.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream()
+        ws = _pipelined_workspace(stream, out.numel())
         err = _sparse_lib().bw_gemm_sparse_fused_pipelined(
             digits.data_ptr(), b.data_ptr(), schedule.data_ptr(),
             scale.data_ptr(), _ptr(scale_n), _ptr(bias), ws.data_ptr(),
             out.data_ptr(), *dims, block_m, block_k,
-            _per_cta(dims[0], digits.device), _ACT_CODES[activation],
-            stream)
+            _pipelined_ctas(digits.device, dims[5], block_m, block_k, True),
+            _ACT_CODES[activation], stream.cuda_stream)
     _raise_on(fn, err)
     bw_gemm_sparse_fused_pipelined.launches += 1
     return out

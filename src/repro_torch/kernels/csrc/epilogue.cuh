@@ -20,8 +20,9 @@ __device__ __forceinline__ int dot16(const int4& a, const int4& b, int acc) {
 
 __device__ __forceinline__ float activate(float y, int act) {
   // The plain versions' formulas: silu = y * (1 / (1 + exp(-y))), one
-  // rounding a step, and torch's tanh-form gelu; expf / tanhf differ from
-  // the host libraries by a few ulps.
+  // rounding a step, and the tanh-form gelu (whose plain version takes
+  // y * (0.5 * (1 + tanh))); expf / tanhf differ from the host libraries
+  // by a few ulps.
   constexpr float kBeta = 0.7978845608028654f;    // sqrt(2 / pi)
   constexpr float kKappa = 0.044715f;
   switch (act) {
