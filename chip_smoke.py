@@ -14,9 +14,15 @@ Phases (any failure exits non-zero and prints no result line):
    and prints the build seconds and ptxas' register and spill report of
    each kernel instantiation.
 3. Kernels against their plain versions, at the main path's shapes
-   (M, K_pad) in {(2304, 2304), (5760, 2304), (2304, 5888)}.
-   Dense (B1 bw_gemm_fused, B2 bw_gemm), N in {1, 4, 512}: seeded weights
-   planned at planes=3, masks with a False block over non-zero digits.
+   (M, K_pad) in {(2304, 2304), (5760, 2304), (2304, 5888)}.  First
+   ``floor_ms``, the timing method's own floor (``cuda_ms`` of an empty
+   launch), and per shape ``stream_ms``, a PyTorch reduction over as many
+   L2-cold bytes as the live digit planes (a reading of what the card
+   streams at that size, not a bound).
+   Dense (B1 bw_gemm_fused, B2 bw_gemm), N in {1, 2, 3, 4, 8, 512}, timed
+   at N in {1, 4, 512}: seeded weights planned at planes=3, masks with a
+   False block over non-zero digits; torch.profiler must see exactly one
+   device operation per B1 and per B2 call.
    Sparse (B3 bw_gemm_sparse_fused, B4 bw_gemm_sparse) and pipelined (B5
    bw_gemm_sparse_fused_pipelined, B6 bw_gemm_sparse_pipelined), N in
    {1, 2, 3, 4, 8}: seeded weights at planes=2, schedules in both orders
@@ -28,15 +34,23 @@ Phases (any failure exits non-zero and prints no result line):
    entries across CTAs (bw_gemm.pipelined_ranges over the grid).  B4/B3
    against their plain versions, B6/B5 on both orders against the same
    plain versions and bit for bit against B4/B3.  torch.profiler must see
-   exactly one device operation (a pipelined_kernel) per B5 and per B6
-   call, on both orders; the wrapper's shared-memory layout must equal
-   the library's over a grid of block shapes and widths.  B7 ent_encode,
-   blocks 128 x 256: uniform int8 and planes=3 weights at the three
-   shapes, and the 256 int8 values tiled into one block; digits and mask
-   must be bit-identical.  B9 quant_gemm (the weight as A [M, K], T tokens as B
-   [K, T]) and B8 quant_gemm_fused (T tokens as A [T, K], the weight as B
-   [K, M]), T in {1, 4, 512}: B8 in both epilogue axes, with and without a
-   bias, under every activation, and in bfloat16.  Integer results, and
+   exactly one device operation per B3 and per B4 call, and one (a
+   pipelined_kernel) per B5 and per B6 call, on both orders; the
+   wrapper's shared-memory layout must equal the library's over a grid of
+   block shapes and widths.  B1 is timed on the same planes=2 plans and
+   masks, the bar for B3, and held bit-identical to B3 there.  The edges
+   of B1-B4's work split, at N in {1, 2, 3, 4, 8}: runs of very different
+   lengths (a 92-entry run and a sentinel-only m-block, so some B3/B4
+   CTAs search for their run), zero-weight padding, block_k 16 (runs of
+   up to 576 entries) and block_m 24; B1-B4 against their plain
+   versions, B3 == B1 and B4 == B2 on the mask the schedule was built
+   from.  B7 ent_encode, blocks 128 x 256: uniform int8 and planes=3
+   weights at the three shapes, and the 256 int8 values tiled into one
+   block; digits and mask must be bit-identical.  B9 quant_gemm (the
+   weight as A [M, K], T tokens as B [K, T]) and B8 quant_gemm_fused (T
+   tokens as A [T, K], the weight as B [K, M]), T in {1, 4, 512}: B8 in
+   both epilogue axes, with and without a bias, under every activation,
+   and in bfloat16.  Integer results, and
    fused results without an activation, must be bit-identical to the
    plain versions; with an activation within rtol 1e-5, atol 1e-6 (the
    card's expf/tanhf against torch's own kernels, and gelu's 1 + tanh
@@ -56,8 +70,9 @@ Phases (any failure exits non-zero and prints no result line):
    launch count -- every count zeroed just before each run, read just
    after -- must be 7 * layers * steps on its own route and 0 elsewhere.
    torch.profiler then traces three more decode steps of each route:
-   device time per step, the kernels' share of it, and the device's busy
-   share of the step time measured without the profiler.
+   device time per step, the kernels' share of it, the route kernel's
+   time and device operations a step (one a call: 7 * layers), and the
+   device's busy share of the step time measured without the profiler.
 5. The kernel-level API on every dense weight of the same params (7 * 40
    = 280), one weight at a time, at the main path's planes=3 spec: the
    plan with ``ops.plan_operand(encode_impl="kernel")`` (B7) must equal
@@ -82,7 +97,8 @@ masks and schedules (live plane blocks only) and the operands each timed
 call passes: the live digits, the activations, the mask (dense) or the
 schedule (sparse, pipelined), the output (int32, or float32 when fused)
 and, when fused, the scale vectors; fused kernels are timed without a
-bias.  B7 moves its input and four digit planes and the mask; B8/B9
+bias.  ``floor_ms`` is phase 3's timing floor, one call's (``ms`` holds
+seven).  B7 moves its input and four digit planes and the mask; B8/B9
 their two int8 operands and the output (B8: and its scale).  A line
 before it gives B1, B2, B8 and B9 at N=512.  ``launches`` is the count
 on the kernel's own route: pallas_fused at planes=3 for B1, pallas for
@@ -108,6 +124,8 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM, data sheet
 INT8_OPS_PER_S = 1979e12             # H100 SXM dense int8, data sheet
 PATH_SHAPES = ((2304, 2304, 4), (5760, 2304, 2), (2304, 5888, 1))
+DENSE_NS = (1, 2, 3, 4, 8, 512)      # phase 3's widths for B1/B2
+TIMED_NS = (1, 4, 512)               # ... of which timed
 ACT_RTOL, ACT_ATOL = 1e-5, 1e-6
 
 
@@ -195,7 +213,11 @@ def kernel_cases(dev, log):
                              device=dev)
         wq_pad[:m, :k] = qw.t()
         bias = torch.randn((digits.shape[1], 1), generator=gen, device=dev)
-        for n in (1, 4, 512):
+        live_ms = stream_ms(digits, 3)
+        log(f"  stream_ms M={digits.shape[1]} K={k_pad} planes=3: "
+            f"{live_ms:.5f} ms (float32 sum over {3 * digits[0].numel()} "
+            f"L2-cold bytes)")
+        for n in DENSE_NS:
             x = torch.randn((n, k), generator=gen, device=dev)
             qx, sx = quant.quantize_to_planes(x, 3, axis=-1)
             b = torch.zeros((n, k_pad), dtype=torch.int8, device=dev)
@@ -237,6 +259,17 @@ def kernel_cases(dev, log):
                     raise AssertionError(
                         f"bw_gemm_fused[{act}] != plain at M={m} "
                         f"K={k_pad} N={n}: max |diff| {diff}")
+            if m == PATH_SHAPES[0][0] and k == PATH_SHAPES[0][1] and n == 4:
+                for name, kern, call in (
+                        ("bw_gemm_fused", "bw_gemm_fused_kernel",
+                         lambda: bwk.bw_gemm_fused(digits, b, mask, scale,
+                                                   None, sx_cols, **kw)),
+                        ("bw_gemm", "bw_gemm_i32_kernel",
+                         lambda: bwk.bw_gemm(digits, b, mask, **kw))):
+                    log(f"  {name}: device operations a call "
+                        f"{one_device_op(name, call, kern)}")
+            if n not in TIMED_NS:
+                continue
 
             # timing, L2-cold: kernel, plain version, torch._int_mm
             b8 = torch.zeros((max(8, n), k_pad), dtype=torch.int8,
@@ -266,7 +299,7 @@ def kernel_cases(dev, log):
                 row = {"m": m_pad, "k_pad": k_pad, "n": n,
                        "per_layer": per_layer,
                        "ms": cuda_ms(fn), "plain_ms": cuda_ms(plain, 5, 1),
-                       "library_ms": lib_ms,
+                       "library_ms": lib_ms, "stream_ms": live_ms,
                        "bytes": moved[name], "ops": ops_n,
                        "live_blocks": nnz, "blocks": mask.numel()}
                 row["bound_ms"] = 1e3 * max(row["bytes"] / HBM_BYTES_PER_S,
@@ -308,6 +341,7 @@ def read_counts() -> dict:
 
 
 SPARSE_NS = (1, 2, 3, 4, 8)          # phase 3's widths for B3-B6
+B1_PLANES2 = "bw_gemm_fused on the planes=2 plan"   # the bar for B3
 ACTS = (None, "silu", "gelu", "relu2")
 
 
@@ -327,19 +361,57 @@ def split_rows(sched, n: int, ctas: int) -> int:
     return sum(len(cs) > 1 for cs in owner.values())
 
 
-def device_ops(fn) -> dict:
+def device_ops(fn, tries: int = 3) -> dict:
     """Name -> count of the device operations (kernels, memsets, copies)
-    that one fn() call queues, by torch.profiler."""
+    that one fn() call queues, by torch.profiler.  A trace that holds no
+    device event at all is taken again, up to ``tries`` times: the tracer
+    has been seen to drop every event of a short trace taken right after
+    another, while the call itself launched its kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {e.key[:60]: e.count for e in prof.key_averages()
-            if str(getattr(e, "device_type", "")).endswith("CUDA")}
+    seen = {}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        seen = {e.key[:60]: e.count for e in prof.key_averages()
+                if str(getattr(e, "device_type", "")).endswith("CUDA")}
+        if seen:
+            break
+    return seen
+
+
+def one_device_op(what: str, call, kernel: str) -> dict:
+    """torch.profiler's device operations of one call(); exactly one, a
+    ``kernel``, or AssertionError."""
+    seen = device_ops(call)
+    if sum(seen.values()) != 1 or not all(kernel in key for key in seen):
+        raise AssertionError(f"{what}: {seen} device operations a call, "
+                             f"expected one {kernel}")
+    return seen
+
+
+def floor_ms() -> float:
+    """The timing method's own floor: ``cuda_ms`` of an empty launch (a
+    sleep kernel of 0 cycles)."""
+    import torch
+    return cuda_ms(lambda i: torch.cuda._sleep(0))
+
+
+def stream_ms(digits, planes: int) -> float:
+    """What the card streams at a kernel's size: a PyTorch reduction over
+    as many L2-cold bytes as the live digit planes (digits[:planes]) --
+    a reading, not a bound.  The bytes are summed as float32, which torch
+    reduces without widening them (an int32 sum widens to int64 and runs
+    at about half the rate)."""
+    import torch
+    cold = cold_copies(digits[:planes].contiguous().view(torch.float32))
+    ms = cuda_ms(lambda i: cold[i % len(cold)].sum())
+    del cold
+    return ms
 
 
 def layout_agreement() -> int:
@@ -377,7 +449,7 @@ def sparse_cases(dev, log):
     from repro_torch.kernels import ops
 
     gen = torch.Generator(device=dev).manual_seed(4321)
-    per_kernel = {name: [] for name in SPARSE}
+    per_kernel = {name: [] for name in SPARSE + (B1_PLANES2,)}
     err = dict.fromkeys(SPARSE, 0.0)
     kw = dict(block_m=128, block_k=256)
     cases = 0
@@ -521,9 +593,20 @@ def sparse_cases(dev, log):
              schedules(planned3.mask), scale3, bias, sx43)
         del planned3
 
-        # one device operation a call: B5 and B6 on both orders
+        # one device operation a call: B3 and B4, and B5 and B6 on both
+        # orders
         if m == PATH_SHAPES[0][0] and k == PATH_SHAPES[0][1]:
             b, sx_cols, scheds = timed[4]
+            for name, kern, call in (
+                    ("bw_gemm_sparse_fused", "sparse_fused_kernel",
+                     lambda: bwk.bw_gemm_sparse_fused(
+                         digits, b, scheds[0], scale, bias, sx_cols,
+                         activation="silu", **kw)),
+                    ("bw_gemm_sparse", "sparse_i32_kernel",
+                     lambda: bwk.bw_gemm_sparse(digits, b, scheds[0],
+                                                **kw))):
+                log(f"  {name}: device operations a call "
+                    f"{one_device_op(name, call, kern)}")
             for order, sched in zip(ops.SCHEDULE_ORDERS, scheds):
                 for name, call in (
                         ("bw_gemm_sparse_pipelined",
@@ -533,19 +616,26 @@ def sparse_cases(dev, log):
                          lambda: bwk.bw_gemm_sparse_fused_pipelined(
                              digits, b, sched, scale, bias, sx_cols,
                              activation="silu", **kw))):
-                    ops_seen = device_ops(call)
+                    ops_seen = one_device_op(f"{name} on {order}", call,
+                                             "pipelined_kernel")
                     log(f"  {name} {order}: device operations a call "
                         f"{ops_seen}")
-                    if sum(ops_seen.values()) != 1 or not all(
-                            "pipelined_kernel" in key for key in ops_seen):
-                        raise AssertionError(
-                            f"{name} on {order}: {ops_seen} device "
-                            f"operations a call, expected one "
-                            f"pipelined_kernel")
 
-        # timing, L2-cold, on the masked case's schedules
+        # timing, L2-cold, on the masked case's schedules; B1 on the same
+        # plan and mask (planes 2-3 masked off) as the bar for B3
+        live_ms = stream_ms(digits, 2)
+        log(f"  stream_ms M={m_pad} K={k_pad} planes=2: {live_ms:.5f} ms "
+            f"(float32 sum over {2 * digits[0].numel()} L2-cold bytes)")
         for n in (1, 4):
             b, sx_cols, (sm, sk) = timed[n]
+            if not torch.equal(
+                    bwk.bw_gemm_fused(digits, b, masked, scale, None,
+                                      sx_cols, **kw),
+                    bwk.bw_gemm_sparse_fused(digits, b, sm, scale, None,
+                                             sx_cols, **kw)):
+                raise AssertionError(f"bw_gemm_fused != bw_gemm_sparse_fused"
+                                     f" on one planes=2 plan at M={m_pad} "
+                                     f"N={n}")
             b8 = torch.zeros((8, k_pad), dtype=torch.int8, device=dev)
             b8[:n] = b
             wq_cold = cold_copies(wq_pad)
@@ -558,13 +648,18 @@ def sparse_cases(dev, log):
             for name, sched in (("bw_gemm_sparse_fused", sm),
                                 ("bw_gemm_sparse", sm),
                                 ("bw_gemm_sparse_fused_pipelined", sk),
-                                ("bw_gemm_sparse_pipelined", sk)):
+                                ("bw_gemm_sparse_pipelined", sk),
+                                (B1_PLANES2, masked)):
                 fused = "fused" in name
                 args = (scale, None, sx_cols) if fused else ()
-                kern, plain = getattr(bwk, name), getattr(bwk, name + "_plain")
-                # bytes the call moves: live digits, activations, schedule,
-                # the output, and the two scale vectors when fused
-                moved = (live_bytes + b.numel() + 4 * sched.numel()
+                kname = "bw_gemm_fused" if name == B1_PLANES2 else name
+                kern = getattr(bwk, kname)
+                plain = getattr(bwk, kname + "_plain")
+                # bytes the call moves: live digits, activations, schedule
+                # (B1: mask), the output, and the two scale vectors when
+                # fused
+                aux = sched.numel() * (1 if name == B1_PLANES2 else 4)
+                moved = (live_bytes + b.numel() + aux
                          + 4 * m_pad * n + (4 * (m_pad + n) if fused else 0))
                 row = {"m": m_pad, "k_pad": k_pad, "n": n,
                        "per_layer": per_layer,
@@ -572,7 +667,8 @@ def sparse_cases(dev, log):
                            d_cold[i % len(d_cold)], b, sched, *args, **kw)),
                        "plain_ms": cuda_ms(lambda i: plain(
                            digits, b, sched, *args, **kw), 5, 1),
-                       "library_ms": lib_ms, "bytes": moved,
+                       "library_ms": lib_ms, "stream_ms": live_ms,
+                       "bytes": moved,
                        "ops": 2 * live_bytes * n, "live_blocks": nnz,
                        "steps": int(sched.shape[0]),
                        "blocks": masked.numel()}
@@ -591,6 +687,113 @@ def sparse_cases(dev, log):
         f"orders); m-block rows split across CTAs, summed over the main "
         f"cases: {split_seen}")
     return per_kernel, err
+
+
+def window_misses(sched, mblks: int) -> int:
+    """m-blocks whose B3/B4 CTAs miss the first window of the schedule
+    (bw_gemm.schedule_window) and search for their run instead."""
+    from repro_torch.kernels import bw_gemm as bwk
+    rows = sched[:, 1].tolist()
+    misses = 0
+    for mblk in range(mblks):
+        start, width = bwk.schedule_window(len(rows), mblks, mblk)
+        misses += not (width > 0 and (start == 0 or rows[start] < mblk) and (
+            start + width == len(rows) or rows[start + width - 1] > mblk))
+    return misses
+
+
+def walk_cases(dev, log) -> int:
+    """Phase 3, the edges of B1-B4's work split (csrc/bw_gemm.cu,
+    csrc/bw_gemm_sparse.cu):
+    runs of very different lengths (a 92-entry run, a sentinel-only
+    m-block, so B3/B4 windows miss and CTAs search), zero-weight padding,
+    block_k 16 (576-entry runs: several passes of the block list), and
+    block_m 24.  At N in {1, 2, 3, 4, 8}: B2, B1 (every activation), B4
+    and B3 against their plain versions, and B3 == B1, B4 == B2 bit for
+    bit on the mask the schedule was built from.  Returns the cases."""
+    import torch
+    from repro_torch.kernels import bw_gemm as bwk
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(1618)
+
+    def digits_of(m, k, planes):
+        d = torch.randint(-2, 3, (4, m, k), generator=gen, device=dev,
+                          dtype=torch.int8)
+        d[planes:] = 0
+        return d
+
+    skew = torch.rand((4, 6, 23), generator=gen, device=dev) < 0.15
+    skew[:, 0] = True                   # a 92-entry run
+    skew[:, 2] = False                  # a sentinel-only m-block
+    uniform = torch.rand((4, 5, 9), generator=gen, device=dev) < 0.5
+    uniform[2:] = False
+    long_runs = torch.rand((4, 2, 144), generator=gen, device=dev) < 0.9
+    small = torch.rand((4, 3, 2), generator=gen, device=dev) < 0.7
+    # (what, digits, mask, block_m, block_k, extra zero-weight entries)
+    setups = [("skewed 768 x 5888", digits_of(768, 5888, 4), skew, 128, 256,
+               0),
+              ("padded 640 x 2304", digits_of(640, 2304, 2), uniform, 128,
+               256, 37),
+              ("block_k 16, 256 x 2304", digits_of(256, 2304, 4), long_runs,
+               128, 16, 0),
+              ("block_m 24, 72 x 512", digits_of(72, 512, 3), small, 24, 256,
+               0)]
+    cases = 0
+    for what, digits, mask, bm, bk, pad in setups:
+        m, k = digits.shape[1:]
+        sched = ops.build_schedule(mask, 4, "m_major")
+        if pad:
+            sched = ops.pad_schedule(sched, sched.shape[0] + pad)
+        misses = window_misses(sched, mask.shape[1])
+        sched = torch.from_numpy(sched).to(dev)
+        kw = dict(block_m=bm, block_k=bk)
+        scale = torch.rand((m, 1), generator=gen, device=dev) * 1e-2
+        bias = torch.randn((m, 1), generator=gen, device=dev)
+        for n in SPARSE_NS:
+            b = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
+                              dtype=torch.int8)
+            sx = torch.rand((1, n), generator=gen, device=dev) * 1e-1
+            where = f"{what} N={n}"
+            b2 = bwk.bw_gemm(digits, b, mask, **kw)
+            b4 = bwk.bw_gemm_sparse(digits, b, sched, **kw)
+            torch.cuda.synchronize()
+            for name, got, want in (
+                    ("bw_gemm", b2, bwk.bw_gemm_plain(digits, b, mask, **kw)),
+                    ("bw_gemm_sparse", b4, bwk.bw_gemm_sparse_plain(
+                        digits, b, sched, **kw)),
+                    ("bw_gemm_sparse == bw_gemm", b4, b2)):
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{name} != plain at {where}")
+            for act in ACTS:
+                args = (scale, bias if act else None, sx)
+                b1 = bwk.bw_gemm_fused(digits, b, mask, *args,
+                                       activation=act, **kw)
+                b3 = bwk.bw_gemm_sparse_fused(digits, b, sched, *args,
+                                              activation=act, **kw)
+                torch.cuda.synchronize()
+                for name, got, want in (
+                        ("bw_gemm_fused", b1, bwk.bw_gemm_fused_plain(
+                            digits, b, mask, *args, activation=act, **kw)),
+                        ("bw_gemm_sparse_fused", b3,
+                         bwk.bw_gemm_sparse_fused_plain(
+                             digits, b, sched, *args, activation=act,
+                             **kw))):
+                    ok = torch.equal(got, want) if act is None else bool(
+                        torch.all((got - want).abs()
+                                  <= ACT_ATOL + ACT_RTOL * want.abs()))
+                    if not ok:
+                        raise AssertionError(f"{name}[{act}] != plain at "
+                                             f"{where}")
+                if not torch.equal(b3, b1):
+                    raise AssertionError(f"bw_gemm_sparse_fused[{act}] != "
+                                         f"bw_gemm_fused at {where}")
+            cases += 1
+        log(f"  walk edges, {what}: {int(mask.sum())} live blocks, schedule "
+            f"{sched.shape[0]} entries, {misses} of {mask.shape[1]} m-blocks "
+            f"search past the first window; B1-B4 == plain, B3 == B1, "
+            f"B4 == B2 at N in {SPARSE_NS}")
+    return cases
 
 
 def baseline_cases(dev, log):
@@ -851,17 +1054,27 @@ def profile_steps(eng, dev, steps: int = 3) -> dict:
                if str(getattr(e, "device_type", "")).endswith("CUDA")]
     total_us = sum(dev_us(e) for e in kernels)
     kern_us = {k: sum(dev_us(e) for e in kernels if k in e.key)
-               for k in ("bw_gemm_fused_kernel", "bw_gemm_i32_kernel",
-                         "sparse_fused_kernel", "sparse_i32_kernel",
-                         "pipelined_kernel")}
+               for k in set(SYMBOLS.values())}
+    kern_calls = {k: sum(e.count for e in kernels if k in e.key)
+                  for k in set(SYMBOLS.values())}
     top = sorted(kernels, key=dev_us, reverse=True)[:12]
     return {"steps": steps,
             "device_ms_per_step": total_us / 1e3 / steps,
             "kernel_launches_per_step": sum(e.count for e in kernels) / steps,
             "kernel_ms_per_step": {k: v / 1e3 / steps
                                    for k, v in kern_us.items()},
+            "kernel_ops_per_step": {k: v / steps
+                                    for k, v in kern_calls.items()},
             "top_kernels": [(e.key[:90], dev_us(e) / 1e3 / steps,
                              e.count / steps) for e in top]}
+
+
+# served kernel -> its CUDA symbol in profiler events
+SYMBOLS = {"bw_gemm_fused": "bw_gemm_fused_kernel",
+           "bw_gemm": "bw_gemm_i32_kernel",
+           "bw_gemm_sparse_fused": "sparse_fused_kernel",
+           "bw_gemm_sparse": "sparse_i32_kernel",
+           "bw_gemm_sparse_fused_pipelined": "pipelined_kernel"}
 
 
 def serve(cfg, params, spec_text, prompts, dev):
@@ -979,10 +1192,13 @@ def main() -> int:
 
     # -- 3. kernels against their plain versions -----------------------------
     log("[kernels] bit-exact and timed against the plain versions")
+    floor = floor_ms()
+    log(f"  floor_ms {floor:.5f}: cuda_ms of an empty launch")
     per_kernel, err = kernel_cases(dev, log)
     for rows, errs in (sparse_cases(dev, log), baseline_cases(dev, log)):
         per_kernel.update(rows)
         err.update(errs)
+    log(f"  B1-B4 walk edges: {walk_cases(dev, log)} cases")
 
     # -- 4. the path at full width -------------------------------------------
     cfg = CONFIG
@@ -1016,6 +1232,14 @@ def main() -> int:
             f" launches {stats['launches']}  ({kind})")
         log(f"[profile] planes={planes} impl={impl}: "
             f"{json.dumps(stats['profile'])}")
+        per_step = stats["profile"].get("kernel_ms_per_step", {})
+        if kern in SYMBOLS and SYMBOLS[kern] in per_step:
+            ops_step = stats["profile"]["kernel_ops_per_step"][SYMBOLS[kern]]
+            log(f"[profile] planes={planes} impl={impl}: {kern} "
+                f"{per_step[SYMBOLS[kern]]:.3f} ms a step, "
+                f"{1e3 * per_step[SYMBOLS[kern]] / (7 * cfg.n_layers):.2f} "
+                f"us a launch; {ops_step:g} of its device operations a "
+                f"step for {7 * cfg.n_layers} calls  ({kind})")
         if "unfused" in stats:
             log(f"[path] planes={planes} impl={impl} unfused route: "
                 f"{json.dumps(stats['unfused'])}")
@@ -1109,6 +1333,17 @@ def main() -> int:
                                      sums["ops"] / INT8_OPS_PER_S)
         wide[name] = sums
     log(f"[kernels] one layer's seven calls at N=512: {json.dumps(wide)}")
+    bar = {name: layer_sums(name, 4)["ms"]
+           for name in (B1_PLANES2, "bw_gemm_sparse_fused")}
+    stream = {name: sum(r["stream_ms"] * r["per_layer"]
+                        for r in per_kernel[name] if r["n"] == 4)
+              for name in ("bw_gemm_fused", "bw_gemm_sparse_fused")}
+    log(f"[kernels] one layer's seven calls at N=4 on the planes=2 plan: "
+        f"bw_gemm_fused {bar[B1_PLANES2]:.4f} ms, bw_gemm_sparse_fused "
+        f"{bar['bw_gemm_sparse_fused']:.4f} ms; stream_ms of the live "
+        f"digits: planes=3 {stream['bw_gemm_fused']:.4f}, planes=2 "
+        f"{stream['bw_gemm_sparse_fused']:.4f}; floor_ms x 7 "
+        f"{7 * floor:.4f}  ({kind})")
     kernels = []
     for name in KERNELS:
         sums = layer_sums(name, 4)
@@ -1133,7 +1368,7 @@ def main() -> int:
             "ms": sums["ms"], "plain_ms": sums["plain_ms"],
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": sums["library_ms"]})
+            "library_ms": sums["library_ms"], "floor_ms": floor})
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

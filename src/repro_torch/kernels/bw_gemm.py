@@ -40,8 +40,8 @@ __all__ = ["bw_gemm", "bw_gemm_fused", "bw_gemm_plain",
            "bw_gemm_sparse_plain", "bw_gemm_sparse_fused_plain",
            "bw_gemm_sparse_pipelined_plain",
            "bw_gemm_sparse_fused_pipelined_plain", "EPILOGUE_ACTIVATIONS",
-           "SCHED_COLS", "pipelined_grid", "pipelined_ranges",
-           "pipelined_work"]
+           "SCHED_COLS", "ROW_STREAM_SPANS", "pipelined_grid",
+           "pipelined_ranges", "pipelined_work", "schedule_window"]
 
 
 def _gelu_tanh(x):
@@ -71,9 +71,33 @@ EPILOGUE_ACTIVATIONS = {
 # activation name -> the kernel's Activation enum
 _ACT_CODES = {None: 0, "silu": 1, "gelu": 2, "relu2": 3}
 
-# the kernel's CTA row tile (one row per warp, csrc kWarps): it must divide
-# the plan's block_m so a CTA never straddles two mask rows
+# How B1-B4 cut their work, mirrored for the host-side model in the tests.
+# Each walks an output row a warp, 16-byte chunks along K with the loads
+# of every live plane at a chunk position in flight together, a window of
+# k-blocks at a time whose live blocks' weights it knows first: B1/B2
+# (csrc/bw_gemm.cu) read their mask bits 32 k-blocks at a time, a ballot a
+# plane, each warp for itself, ROW_TILE rows a CTA; B3/B4
+# (csrc/bw_gemm_sparse.cu) fill a shared table of 256 k-blocks from the
+# schedule once a CTA of ROW_STREAM_ROWS rows.  block_m must be a multiple
+# of ROW_TILE, so no CTA straddles two m-blocks.
 ROW_TILE = 8
+ROW_STREAM_ROWS = 4
+ROW_STREAM_THREADS = 32 * ROW_STREAM_ROWS
+ROW_STREAM_SPANS = {"mask": 32, "schedule": 256}
+
+
+def schedule_window(steps: int, mblks: int, mblk: int) -> tuple:
+    """(start, width): the schedule entries a B3/B4 CTA of m-block ``mblk``
+    reads first (csrc/bw_gemm_sparse.cu fill_table), centred where the
+    run would sit if each of the ``mblks`` m-blocks had steps / mblks
+    entries, up to ROW_STREAM_THREADS wide.  The CTA keeps the window's
+    entries when the window holds both ends of the run, and otherwise
+    searches for the run."""
+    per = max(mblks, 1)
+    run = (steps + mblks - 1) // per
+    width = min(ROW_STREAM_THREADS, steps, 2 * run + 32)
+    guess = (mblk * steps + steps // 2) // per
+    return max(0, min(steps - width, guess - width // 2)), width
 
 # Column layout of the compacted block schedule (int32 [L, 9]), the
 # reference's: one entry per live (plane, m-block, k-block) of the

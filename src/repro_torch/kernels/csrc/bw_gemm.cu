@@ -22,21 +22,29 @@
 // digit byte feeds at most 4 multiply-adds: about 2 operations per byte
 // read, against the ~590 int8 operations per byte at which the card turns
 // compute-bound.  The work is one pass over the live digit planes
-// (3 * M * K bytes at planes=3), at 3.35 TB/s.
+// (3 * M * K bytes at planes=3), at 3.35 TB/s.  At the path's sizes a call
+// also pays a fixed cost the bytes do not explain: the launch, the round
+// trip for the mask bits before the first digit load, and the ramp of the
+// memory system; past it the loads below stream at about 60% of the
+// data-sheet rate, faster than PyTorch's own reductions over the same
+// bytes (PERF.md, chip_smoke.py's stream_ms).
 //
 // What the design does about it:
 //   * one warp per output row, eight rows per CTA: M = 2304 gives 288
 //     CTAs and M = 5760 gives 720 for 132 SMs, where the TPU's 128-row
 //     tiles would give 18 to 45; registers are capped so three CTAs fit
-//     an SM, and every warp of an M = 2304 product is resident at once;
+//     an SM (fewer past four columns or four planes, whose tiles hold
+//     more registers, so that nothing spills), and every warp of an
+//     M = 2304 product is resident at once;
 //   * each lane reads 16 contiguous K bytes of every live plane per step
 //     (int4 loads: a warp moves 512 bytes of one row per plane, fully
 //     coalesced, as the digits are K-contiguous), issuing all planes'
-//     loads before any arithmetic, and __dp4a does 4 int8 products per
-//     instruction in exact int32;
+//     loads and the step's activation chunks before any arithmetic, and
+//     __dp4a does 4 int8 products per instruction in exact int32;
 //   * the mask bits of a row are fetched once per 32 k-blocks into
 //     registers (one ballot per plane), so no digit load waits on a mask
-//     load and a dead plane costs no memory traffic at all;
+//     load and a dead plane costs no memory traffic at all; no warp waits
+//     on another;
 //   * the activations are [N, K] int8 rows (K-contiguous, the quantized x
 //     rows as they are); they are tiny and stay in L1/L2, read through
 //     the read-only path;
@@ -44,8 +52,12 @@
 //     at a time per CTA and the ragged edge is masked;
 //   * partial sums are reduced across the warp with shuffles; no shared
 //     memory, no atomics, no split-K.
-// No tensor cores (wgmma) and no TMA yet: a later change may use them for
-// large N, where the bound turns to operations.
+// The row-streaming core that B3/B4 run (bw_gemm_sparse.cu) was tried
+// here as well, with the mask's bits or a CTA-wide table, four or eight
+// rows a CTA: level with this walk within the spread between calls, and
+// slower in the path, so this walk stays (PERF.md).  No tensor
+// cores (wgmma) and no TMA: at N=512 the bound turns to operations,
+// which is prefill's work.
 
 #include <cstddef>
 #include <cstdint>
@@ -58,7 +70,14 @@ namespace {
 
 constexpr int kWarps = 8;        // warps per CTA; one output row per warp
 constexpr int kMaxPlanes = 8;    // radix-2 encodings of int8 have 8 planes
-constexpr int kMinCtasPerSm = 3; // register cap: <= 85 registers a thread
+// CTAs an SM must hold at once (the register cap of __launch_bounds__):
+// three (at most 80 registers a thread) up to four columns and four
+// planes; past that a tile's loads hold more registers, and no
+// instantiation spills: two past four columns, one past four planes.
+template <int NT, int BW>
+struct MinCtas {
+  static constexpr int value = BW > 4 ? 1 : NT <= 4 ? 3 : 2;
+};
 
 struct Problem {
   const int8_t* digits;    // [bw, m_pad, k_pad]
@@ -133,7 +152,7 @@ __device__ __forceinline__ void row_sums(const Problem& pr, int m, int n0,
 }
 
 template <int NT, int BW>
-__global__ void __launch_bounds__(kWarps * 32, kMinCtasPerSm)
+__global__ void __launch_bounds__(kWarps * 32, MinCtas<NT, BW>::value)
 bw_gemm_i32_kernel(Problem pr, int32_t* __restrict__ out) {
   const int lane = threadIdx.x & 31;
   const int m = blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -149,7 +168,7 @@ bw_gemm_i32_kernel(Problem pr, int32_t* __restrict__ out) {
 }
 
 template <int NT, int BW>
-__global__ void __launch_bounds__(kWarps * 32, kMinCtasPerSm)
+__global__ void __launch_bounds__(kWarps * 32, MinCtas<NT, BW>::value)
 bw_gemm_fused_kernel(Problem pr, const float* __restrict__ scale,
                      const float* __restrict__ scale_n,
                      const float* __restrict__ bias, int axis_n, int act,

@@ -26,15 +26,34 @@
 // 2 operations per digit byte): one pass over the live plane blocks.
 //
 // The sparse kernels (B3/B4) take an m_major schedule, where each m-block
-// row's entries form one consecutive run, sorted by ROW.  As in
-// bw_gemm.cu, a warp owns one output row and a CTA eight rows of one
-// m-block; the warp finds its run by a warp-wide search of the ROW column,
-// loads the run's entries 32 at a time (one a lane), and walks them as a
-// flat list of 16-byte chunks (entry, chunk), 32 lanes side by side and
-// eight chunks a lane in flight, so a run of any length keeps every lane
-// busy.  The accumulator stays in registers for the
-// whole run (what FIRST and LAST mean on the TPU) and is reduced across
-// the warp with shuffles at its end.
+// row's entries form one consecutive run, sorted by ROW.  At decode sizes
+// a call is 10-27 MB of live digits, 3-8 us at 3.35 TB/s, so a call's
+// fixed cost -- the launch, the round trips before the first digit load
+// and the memory system's ramp -- weighs as much as its bytes.  The
+// design spends one round trip finding the run, then streams as B1 does:
+//   * One warp an output row, four rows (of one m-block) a CTA: 576 CTAs
+//     at M = 2304, at most 80 registers a thread so six CTAs fit an SM
+//     and an M = 2304 product is resident at once.
+//   * The CTA reads its m-block's run once, not once a warp, into a
+//     shared-memory table of weights [plane][kblk], 256 k-blocks at a
+//     time (0: dead): one window of entries, one a thread, centred where
+//     the run would sit if every m-block had L / mblks entries
+//     (kernels/bw_gemm.py schedule_window), kept when it holds both ends
+//     of the run -- one round trip and one barrier -- else a CTA-wide
+//     pivot search for the run's bounds (128 pivots a bound a round) and
+//     the run.  Weights are added into the table, so a repeated entry
+//     counts as often as it appears.
+//   * Each warp then walks its row as B1 does (bw_gemm.cu): 16-byte chunks
+//     along K, 32 lanes side by side, the loads of every live plane at a
+//     chunk position and its activation chunks issued before any
+//     multiply, __dp4a in exact int32, a shuffle reduction, lane 0 stores.
+//     Digit loads bypass L1 (each byte is read once).  So B3 reads what B1
+//     reads on the same mask and differs only in how it finds it.
+// Tried on the card and dropped, each slower at N = 4:
+// several rows an item so one activation load feeds them (registers, and
+// the products arrive in bursts), more chunk positions in flight a lane,
+// activations staged in shared memory (a round trip before the first
+// digit load), an L2 prefetch of the row; eight-warp CTAs were no faster.
 //
 // The pipelined kernels (B5/B6) take a schedule in either order.  A
 // k_major schedule revisits output rows non-consecutively, so no CTA can
@@ -113,8 +132,6 @@ namespace {
 
 constexpr int kWarps = 8;          // warps per CTA
 constexpr int kThreads = kWarps * 32;
-constexpr int kMinCtasPerSm = 3;   // register cap, as in bw_gemm.cu
-constexpr int kUnroll = 8;         // 16-byte digit loads in flight a lane
 // schedule columns read here (kernels/bw_gemm.py SCHED_COLS)
 constexpr int kPlane = 0, kRow = 1, kKblk = 2, kWeight = 3;
 
@@ -153,98 +170,151 @@ __device__ __forceinline__ float fused_epilogue(int acc, float scale,
   return activate(y, act);
 }
 
-// [lo, hi): the entries of m-block `row` in an m_major schedule, whose
-// ROW column is sorted (padding included).  The whole warp searches for
-// both bounds at once: each round every lane reads one of 32 evenly
-// spaced pivots for each bound, so a schedule of L entries takes
-// log32(L) rounds of dependent loads (2 up to 1,024 entries).
-__device__ __forceinline__ void find_run(const Sparse& pr, int row, int lane,
-                                         int& lo_out, int& hi_out) {
-  int lo[2] = {0, 0}, len[2] = {pr.steps, pr.steps};  // answer in [lo, lo+len]
+// ---------------------------------------------------------------------------
+// B3 / B4: m_major runs, a weight table a CTA, B1's row walk
+// ---------------------------------------------------------------------------
+
+constexpr int kRunWarps = 4;                  // rows a CTA, one a warp
+constexpr int kRunThreads = kRunWarps * 32;
+constexpr int kTableKblks = 256;              // k-blocks the table holds
+
+// CTAs an SM must hold at once (the register cap of __launch_bounds__):
+// six (at most 80 registers a thread) up to four columns and four planes,
+// so every CTA of a 2304 x 2304 product is resident together (576 CTAs,
+// 792 places); four past that, whose tiles hold more registers.
+template <int NT, int BW>
+struct RunMinCtas {
+  static constexpr int value = NT <= 4 && BW <= 4 ? 6 : 4;
+};
+
+// 16 bytes from device memory through the non-coherent path, not kept in
+// L1: each digit byte is read once.
+__device__ __forceinline__ int4 load_stream(const int4* p) {
+  int4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.s32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
+
+// [lo, hi) of m-block `mblk`'s run, by a CTA-wide search of the sorted ROW
+// column: each round every thread reads one pivot a bound, so L entries
+// take log128(L) rounds.
+__device__ void search_run(const Sparse& pr, int mblk, int& lo, int& hi) {
+  int base[2] = {0, 0}, len[2] = {pr.steps, pr.steps};
+  const int t = threadIdx.x;
   while (len[0] > 0 || len[1] > 0) {
-    int step[2];
-    bool less[2];
+    int step[2], below[2];
 #pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      step[t] = (len[t] + 31) / 32;
-      const int idx = lo[t] + (lane + 1) * step[t] - 1;
-      less[t] = len[t] > 0 && idx < lo[t] + len[t] &&
-                load_col(pr, idx, kRow) < row + t;
+    for (int s = 0; s < 2; ++s) {
+      step[s] = (len[s] + kRunThreads - 1) / kRunThreads;
+      const int idx = base[s] + (t + 1) * step[s] - 1;
+      const bool less = len[s] > 0 && idx < base[s] + len[s] &&
+                        load_col(pr, idx, kRow) < mblk + s;
+      below[s] = __syncthreads_count(less);
     }
 #pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const int below = __popc(__ballot_sync(0xffffffffu, less[t]));
-      if (len[t] > 0) {
-        const int next = lo[t] + below * step[t];
-        len[t] = min(step[t] - 1, lo[t] + len[t] - next);
-        lo[t] = next;
+    for (int s = 0; s < 2; ++s) {
+      if (len[s] > 0) {
+        const int next = base[s] + below[s] * step[s];
+        len[s] = min(step[s] - 1, base[s] + len[s] - next);
+        base[s] = next;
       }
     }
   }
-  lo_out = lo[0];
-  hi_out = lo[1];
+  lo = base[0];
+  hi = base[1];
 }
 
-// ---------------------------------------------------------------------------
-// B3 / B4: m_major runs, one warp per output row
-// ---------------------------------------------------------------------------
+// Adds schedule entry e of ROW `row` into the table when it is live, of
+// m-block `mblk`, and its k-block falls in [kb0, kb0 + wk).
+__device__ __forceinline__ void add_entry(const Sparse& pr,
+                                          int (*table)[kTableKblks], int mblk,
+                                          int kb0, int wk, int e, int row) {
+  const int plane = load_col(pr, e, kPlane), kblk = load_col(pr, e, kKblk);
+  const int weight = load_col(pr, e, kWeight);
+  if (row == mblk && live(pr, plane, row, kblk, weight) && kblk >= kb0 &&
+      kblk < kb0 + wk)
+    atomicAdd(&table[plane][kblk - kb0], weight);
+}
 
-// Full int32 sums of row m against columns n0 .. n0+NT-1, in every lane.
-// The run is walked 32 entries at a time: lane e loads entry e of the
-// window once, and the lanes reading a chunk of that entry take its
-// plane, k-block and weight from lane e by shuffle.
-template <int NT>
-__device__ __forceinline__ void run_sums(const Sparse& pr, int m, int n0,
-                                         int lane, int (&acc)[NT]) {
-  const int mblk = m / pr.block_m;
-  int lo, hi;
-  find_run(pr, mblk, lane, lo, hi);
-  const int cpk = pr.block_k >> 4;               // 16-byte chunks a k-block
-  const size_t plane_stride = static_cast<size_t>(pr.m_pad) * pr.k_pad;
-  const int8_t* row = pr.digits + static_cast<size_t>(m) * pr.k_pad;
+// The weights [plane][kblk - kb0] of m-block `mblk`'s live blocks in
+// k-blocks [kb0, kb0 + wk), for the whole CTA (every thread calls it; it
+// ends at a barrier): the first window of entries (bw_gemm.py
+// schedule_window) when it holds both ends of the run, else the run found
+// by search_run.  Weights are added, so a repeated entry counts as often
+// as it appears.
+template <int BW>
+__device__ void fill_table(const Sparse& pr, int (*table)[kTableKblks],
+                           int mblk, int kb0, int wk) {
+  const int t = threadIdx.x, steps = pr.steps;
+  if (kb0 > 0) __syncthreads();                // the last window is read
+  for (int q = t; q < BW * wk; q += kRunThreads) table[q / wk][q % wk] = 0;
+  const int mblks = pr.m_pad / pr.block_m;
+  const int run = (steps + mblks - 1) / mblks;
+  const int width = min(kRunThreads, min(steps, 2 * run + 32));
+  const int guess = static_cast<int>(
+      (static_cast<long long>(mblk) * steps + steps / 2) / mblks);
+  const int start = max(0, min(steps - width, guess - width / 2));
+  const int row = t < width ? load_col(pr, start + t, kRow) : -1;
+  // the window holds the run when its first entry is below the m-block
+  // (or is the schedule's first) and its last above (or is the last); the
+  // barrier also orders the zeroing before the adds
+  const bool miss = __syncthreads_or(
+      (t == 0 && !(width > 0 && (start == 0 || row < mblk))) ||
+      (t == width - 1 && !(start + width == steps || row > mblk)));
+  if (!miss) {
+    if (t < width) add_entry(pr, table, mblk, kb0, wk, start + t, row);
+  } else {
+    int lo, hi;
+    search_run(pr, mblk, lo, hi);
+    for (int e = lo + t; e < hi; e += kRunThreads)
+      add_entry(pr, table, mblk, kb0, wk, e, mblk);
+  }
+  __syncthreads();
+}
+
+// Full int32 sums of row m against columns n0 .. n0+NT-1, in every lane:
+// B1's walk (bw_gemm.cu row_sums) with the weights from the table, filled
+// 256 k-blocks at a time.
+template <int NT, int BW>
+__device__ __forceinline__ void run_sums(const Sparse& pr,
+                                         int (*table)[kTableKblks], int m,
+                                         int n0, int lane, int (&acc)[NT]) {
+  const int cpk = pr.block_k >> 4;             // 16-byte chunks a k-block
+  const int row_chunks = pr.k_pad >> 4;
+  const int kblks = pr.k_pad / pr.block_k;
+  const size_t plane_chunks = static_cast<size_t>(pr.m_pad) * row_chunks;
+  const int4* row = reinterpret_cast<const int4*>(pr.digits) +
+                    static_cast<size_t>(m) * row_chunks;
+  const int4* bcols = reinterpret_cast<const int4*>(pr.b);
 #pragma unroll
   for (int j = 0; j < NT; ++j) acc[j] = 0;
-  for (int e0 = lo; e0 < hi; e0 += 32) {
-    const int ents = min(32, hi - e0);
-    int my_w = 0, my_plane = 0, my_col = 0;
-    if (lane < ents) {
-      const int plane = load_col(pr, e0 + lane, kPlane);
-      const int kblk = load_col(pr, e0 + lane, kKblk);
-      const int weight = load_col(pr, e0 + lane, kWeight);
-      if (live(pr, plane, mblk, kblk, weight)) {
-        my_w = weight;
-        my_plane = plane;
-        my_col = kblk * cpk;
-      }
-    }
-    const int chunks = ents * cpk;
-    for (int i0 = 0; i0 < chunks; i0 += 32 * kUnroll) {
-      int4 d[kUnroll];
-      int w[kUnroll], col[kUnroll];
+  for (int kb0 = 0; kb0 < kblks; kb0 += kTableKblks) {
+    const int wk = min(kTableKblks, kblks - kb0);
+    fill_table<BW>(pr, table, m / pr.block_m, kb0, wk);
+    const int c_end = (kb0 + wk) * cpk;
+    for (int c = kb0 * cpk + lane; c < c_end; c += 32) {
+      const int kb = c / cpk - kb0;
+      int4 d[BW], bv[NT];
+      int w[BW];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int i = i0 + u * 32 + lane;
-        const int src = min(i / cpk, 31);
-        w[u] = __shfl_sync(0xffffffffu, my_w, src);
-        col[u] = __shfl_sync(0xffffffffu, my_col, src) + i % cpk;
-        const int plane = __shfl_sync(0xffffffffu, my_plane, src);
-        if (i >= chunks) w[u] = 0;
-        d[u] = w[u] != 0 ? __ldg(reinterpret_cast<const int4*>(
-                                     row + plane * plane_stride) + col[u])
+      for (int p = 0; p < BW; ++p) {
+        w[p] = table[p][kb];
+        d[p] = w[p] != 0 ? load_stream(row + p * plane_chunks + c)
                          : make_int4(0, 0, 0, 0);
       }
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (w[u] == 0) continue;
+      for (int j = 0; j < NT; ++j)
+        bv[j] = n0 + j < pr.n
+                    ? __ldg(bcols +
+                            static_cast<size_t>(n0 + j) * row_chunks + c)
+                    : make_int4(0, 0, 0, 0);
 #pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const int8_t* brow = pr.b + static_cast<size_t>(n0 + j) * pr.k_pad;
-          const int4 bv = n0 + j < pr.n
-                              ? __ldg(reinterpret_cast<const int4*>(brow) +
-                                      col[u])
-                              : make_int4(0, 0, 0, 0);
-          acc[j] += w[u] * dot16(d[u], bv, 0);
-        }
+      for (int p = 0; p < BW; ++p) {
+        if (w[p] == 0) continue;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) acc[j] += w[p] * dot16(d[p], bv[j], 0);
       }
     }
   }
@@ -256,15 +326,15 @@ __device__ __forceinline__ void run_sums(const Sparse& pr, int m, int n0,
   }
 }
 
-template <int NT>
-__global__ void __launch_bounds__(kThreads, kMinCtasPerSm)
+template <int NT, int BW>
+__global__ void __launch_bounds__(kRunThreads, RunMinCtas<NT, BW>::value)
 sparse_i32_kernel(Sparse pr, int32_t* __restrict__ out) {
+  __shared__ int table[BW][kTableKblks];
   const int lane = threadIdx.x & 31;
-  const int m = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int m = blockIdx.x * kRunWarps + (threadIdx.x >> 5);
   const int n0 = blockIdx.y * NT;
-  if (m >= pr.m_pad) return;     // the whole warp leaves together
   int acc[NT];
-  run_sums<NT>(pr, m, n0, lane, acc);
+  run_sums<NT, BW>(pr, table, m, n0, lane, acc);
   if (lane == 0) {
 #pragma unroll
     for (int j = 0; j < NT; ++j)
@@ -272,18 +342,18 @@ sparse_i32_kernel(Sparse pr, int32_t* __restrict__ out) {
   }
 }
 
-template <int NT>
-__global__ void __launch_bounds__(kThreads, kMinCtasPerSm)
+template <int NT, int BW>
+__global__ void __launch_bounds__(kRunThreads, RunMinCtas<NT, BW>::value)
 sparse_fused_kernel(Sparse pr, const float* __restrict__ scale,
                     const float* __restrict__ scale_n,
                     const float* __restrict__ bias, int act,
                     float* __restrict__ out) {
+  __shared__ int table[BW][kTableKblks];
   const int lane = threadIdx.x & 31;
-  const int m = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int m = blockIdx.x * kRunWarps + (threadIdx.x >> 5);
   const int n0 = blockIdx.y * NT;
-  if (m >= pr.m_pad) return;
   int acc[NT];
-  run_sums<NT>(pr, m, n0, lane, acc);
+  run_sums<NT, BW>(pr, table, m, n0, lane, acc);
   if (lane == 0) {
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
@@ -649,7 +719,8 @@ pipelined_kernel(Sparse pr, Layout lay, int32_t* __restrict__ ws,
 // ---------------------------------------------------------------------------
 
 bool valid(const Sparse& pr) {
-  return pr.steps >= 0 && pr.cols >= 4 && pr.bw >= 1 && pr.n >= 1 &&
+  return pr.steps >= 0 && pr.cols >= 4 && pr.bw >= 1 && pr.bw <= 8 &&
+         pr.n >= 1 &&
          pr.m_pad >= 1 && pr.block_m > 0 && pr.block_m % kWarps == 0 &&
          pr.m_pad % pr.block_m == 0 && pr.block_k > 0 &&
          pr.block_k % 16 == 0 && pr.k_pad % pr.block_k == 0;
@@ -662,34 +733,41 @@ bool valid_pipelined(const Sparse& pr, int ctas, Layout& lay) {
          pipelined_layout(pr.block_m, pr.block_k, nt_for(pr.n), lay);
 }
 
-template <int NT>
+template <int NT, int BW>
 struct LaunchI32 {
   static void run(const Sparse& pr, int32_t* out, cudaStream_t stream) {
-    const dim3 grid(pr.m_pad / kWarps, (pr.n + NT - 1) / NT);
-    sparse_i32_kernel<NT><<<grid, kThreads, 0, stream>>>(pr, out);
+    const dim3 grid(pr.m_pad / kRunWarps, (pr.n + NT - 1) / NT);
+    sparse_i32_kernel<NT, BW><<<grid, kRunThreads, 0, stream>>>(pr, out);
   }
 };
 
-template <int NT>
+template <int NT, int BW>
 struct LaunchFused {
   static void run(const Sparse& pr, const float* scale, const float* scale_n,
                   const float* bias, int act, float* out,
                   cudaStream_t stream) {
-    const dim3 grid(pr.m_pad / kWarps, (pr.n + NT - 1) / NT);
-    sparse_fused_kernel<NT><<<grid, kThreads, 0, stream>>>(
+    const dim3 grid(pr.m_pad / kRunWarps, (pr.n + NT - 1) / NT);
+    sparse_fused_kernel<NT, BW><<<grid, kRunThreads, 0, stream>>>(
         pr, scale, scale_n, bias, act, out);
   }
 };
 
-// Instantiate the column tile NT (1, 2, 4 or 8) a problem needs.
-template <template <int> class Launch, typename... Args>
-void dispatch(const Sparse& pr, Args... args) {
+// Instantiate the column tile NT (1, 2, 4 or 8) and plane capacity BW (4,
+// or 8 past four planes) a problem needs.
+template <template <int, int> class Launch, int BW, typename... Args>
+void dispatch_nt(const Sparse& pr, Args... args) {
   switch (nt_for(pr.n)) {
-    case 1: Launch<1>::run(pr, args...); break;
-    case 2: Launch<2>::run(pr, args...); break;
-    case 4: Launch<4>::run(pr, args...); break;
-    default: Launch<8>::run(pr, args...); break;
+    case 1: Launch<1, BW>::run(pr, args...); break;
+    case 2: Launch<2, BW>::run(pr, args...); break;
+    case 4: Launch<4, BW>::run(pr, args...); break;
+    default: Launch<8, BW>::run(pr, args...); break;
   }
+}
+
+template <template <int, int> class Launch, typename... Args>
+void dispatch(const Sparse& pr, Args... args) {
+  if (pr.bw <= 4) dispatch_nt<Launch, 4>(pr, args...);
+  else dispatch_nt<Launch, 8>(pr, args...);
 }
 
 // The pipelined kernel of column tile NT, its shared memory opted in.

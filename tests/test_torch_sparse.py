@@ -11,6 +11,12 @@ XLA on the CPU contracts ``acc * s + bias`` into one fused multiply-add,
 which the port does not.  With an activation they agree within rtol 1e-5,
 atol 1e-6 (XLA's and torch's exp differ by a few ulps).
 """
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -371,8 +377,10 @@ def test_fast_tier_smoke_lane_tokens_match_reference(impl, kernel,
     the port's tokens equal its pallas_fused and plain planes tokens, and
     the reference's, except where a request's first differing token is
     a near tie of the reference's logits (top-2 margin within
-    FAST_LOGIT_ATOL, the logits agreeing within it in lock step), the
-    bf16 rounding fault of ROADMAP queue C."""
+    FAST_LOGIT_ATOL, the logits agreeing within it in lock step).  That
+    flip is XLA's excess precision in the jitted reference (ROADMAP queue
+    C2): with it off, the reference emits the port's tokens on the whole
+    lane (the test below)."""
     jcfg = jget_config("minicpm-2b", smoke=True)
     jeng = JEngine(jcfg, 2, 16, quant=JSpec.parse(FAST_SPEC + impl))
     prompts = _smoke_prompts(jcfg.vocab_size)
@@ -397,6 +405,45 @@ def test_fast_tier_smoke_lane_tokens_match_reference(impl, kernel,
         assert (jtop, ttop) == (want[g], got[g])
         assert worst <= FAST_LOGIT_ATOL and margin <= FAST_LOGIT_ATOL, \
             (worst, margin)
+
+
+_REFERENCE_LANE = textwrap.dedent("""
+    import json
+    import numpy as np
+    from repro.configs.registry import get_config
+    from repro.engine import QuantSpec
+    from repro.serving.engine import ServeEngine
+    from repro.serving.request import ServeRequest
+    cfg = get_config("minicpm-2b", smoke=True)
+    eng = ServeEngine(cfg, 2, 16, quant=QuantSpec.parse(%r))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, 6).tolist() for _ in range(3)]
+    reqs = [ServeRequest(i, list(p), 5) for i, p in enumerate(prompts)]
+    eng.run(reqs)
+    print(json.dumps([r.out for r in reqs]))
+""")
+
+
+@pytest.mark.parametrize("impl", ["pallas_sparse", "pallas_pipelined"])
+def test_fast_tier_smoke_lane_matches_reference_without_excess_precision(
+        impl):
+    """The whole planes=2 smoke lane (3 requests x 5 tokens): the reference
+    served in a process with XLA's excess precision off emits, token for
+    token, what the port serves on the same route (_smoke_prompts)."""
+    env = dict(os.environ, XLA_FLAGS="--xla_allow_excess_precision=false")
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [src] + [p for p in [env.get("PYTHONPATH")] if p])
+    res = subprocess.run(
+        [sys.executable, "-c", _REFERENCE_LANE % (FAST_SPEC + impl)],
+        env=env, capture_output=True, text=True, timeout=900)
+    assert res.returncode == 0, res.stderr[-2000:]
+    want = json.loads(res.stdout.strip().splitlines()[-1])
+    jcfg = jget_config("minicpm-2b", smoke=True)
+    jeng = JEngine(jcfg, 2, 16, quant=JSpec.parse(FAST_SPEC + impl))
+    tokens, _ = _serve_port(jeng, FAST_SPEC + impl)
+    assert len(want) == 3 and all(len(t) == 5 for t in want)
+    assert tokens == want
 
 
 @pytest.mark.parametrize("kernel", ["bw_gemm_sparse", "bw_gemm_sparse_fused",
