@@ -2,7 +2,7 @@
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one
 NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--rival-wide QUANT_GEMM_CU ...]
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -10,9 +10,9 @@ Phases (any failure exits non-zero and prints no result line):
    is a failure.
 2. Build: compiles the kernel sources under ``src/repro_torch/kernels/
    csrc/`` -- ``bw_gemm.cu``, ``bw_gemm_sparse.cu``, ``encode.cu`` and
-   ``quant_gemm.cu`` -- with nvcc, one process each, all started together,
-   and prints the build seconds and ptxas' register and spill report of
-   each kernel instantiation.
+   ``quant_gemm.cu`` -- with nvcc, one process a library, all started
+   together, and prints the build seconds and ptxas' register and spill
+   report of each kernel instantiation.
 3. Kernels against their plain versions, at the main path's shapes
    (M, K_pad) in {(2304, 2304), (5760, 2304), (2304, 5888)}.  First
    ``floor_ms``, the timing method's own floor (``cuda_ms`` of an empty
@@ -46,11 +46,22 @@ Phases (any failure exits non-zero and prints no result line):
    versions, B3 == B1 and B4 == B2 on the mask the schedule was built
    from.  B7 ent_encode, blocks 128 x 256: uniform int8 and planes=3
    weights at the three shapes, and the 256 int8 values tiled into one
-   block; digits and mask must be bit-identical.  B9 quant_gemm (the
-   weight as A [M, K], T tokens as B [K, T]) and B8 quant_gemm_fused (T
-   tokens as A [T, K], the weight as B [K, M]), T in {1, 4, 512}: B8 in
-   both epilogue axes, with and without a bias, under every activation,
-   and in bfloat16.  Integer results, and
+   block; digits and mask must be bit-identical.  B9 quant_gemm and B8
+   quant_gemm_fused, T in {1, 2, 3, 4, 8, 16, 17, 64, 512}, each in both
+   orientations (the weight as A [M, K] with T token columns B [K, T], as
+   the planned path calls B9, and T token rows A [T, K] with the weight
+   as B [K, M], as the serving path calls B8), at the three shapes and a
+   ragged one (M 2311, K 2320): both epilogue axes, with and without a
+   bias, under every activation, and in bfloat16; two calls in a row on
+   one stream with different operands (at T=4 and T=512); torch.profiler must see
+   exactly one device operation per B8 and per B9 call at every width,
+   and the wrapper's work split (quant_gemm._layout) must equal the
+   library's over a grid of shapes and grids.  At T=512 one layer's
+   seven calls are logged beside torch._int_mm, ``floor_ms`` and the
+   bound; each ``--rival-wide QUANT_GEMM_CU`` names another design's
+   source whose wide kernel meets stream-K (as the designs this one
+   replaced did), which is built, held to the same plain versions and
+   timed beside them.  Integer results, and
    fused results without an activation, must be bit-identical to the
    plain versions; with an activation within rtol 1e-5, atol 1e-6 (the
    card's expf/tanhf against torch's own kernels, and gelu's 1 + tanh
@@ -127,6 +138,9 @@ PATH_SHAPES = ((2304, 2304, 4), (5760, 2304, 2), (2304, 5888, 1))
 DENSE_NS = (1, 2, 3, 4, 8, 512)      # phase 3's widths for B1/B2
 TIMED_NS = (1, 4, 512)               # ... of which timed
 ACT_RTOL, ACT_ATOL = 1e-5, 1e-6
+QUANT_TS = (1, 2, 3, 4, 8, 16, 17, 64, 512)   # phase 3's widths for B8/B9
+# M, K of no tile but 16 (per_layer 0: checked, not timed)
+RAGGED_SHAPE = (2311, 2320, 0)
 
 
 def log(msg: str) -> None:
@@ -361,24 +375,34 @@ def split_rows(sched, n: int, ctas: int) -> int:
     return sum(len(cs) > 1 for cs in owner.values())
 
 
-def device_ops(fn, tries: int = 3) -> dict:
+def device_ops(fn, tries: int = 10) -> dict:
     """Name -> count of the device operations (kernels, memsets, copies)
-    that one fn() call queues, by torch.profiler.  A trace that holds no
-    device event at all is taken again, up to ``tries`` times: the tracer
-    has been seen to drop every event of a short trace taken right after
-    another, while the call itself launched its kernel."""
+    that one fn() call queues, by torch.profiler: fn() runs once in a
+    warm-up step and once in the active step, and only the active step
+    counts (the tracer has been seen to miss a session's first launches,
+    every time, once torch._int_mm has run).  A trace that holds no device
+    event at all is taken again, up to ``tries`` times."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
     seen = {}
-    for _ in range(tries):
+
+    def active_step(prof):            # the step's own annotation aside
+        seen.update({e.key[:60]: e.count for e in prof.key_averages()
+                     if str(getattr(e, "device_type", "")).endswith("CUDA")
+                     and not e.key.startswith("ProfilerStep")})
+
+    for attempt in range(tries):
+        time.sleep(0.25 * attempt)
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        seen = {e.key[:60]: e.count for e in prof.key_averages()
-                if str(getattr(e, "device_type", "")).endswith("CUDA")}
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=active_step) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
         if seen:
             break
     return seen
@@ -392,6 +416,34 @@ def one_device_op(what: str, call, kernel: str) -> dict:
         raise AssertionError(f"{what}: {seen} device operations a call, "
                              f"expected one {kernel}")
     return seen
+
+
+def one_device_op_each(checks) -> dict:
+    """torch.profiler over every call of ``checks`` ((what, call, kernel)
+    triples), each call once (device_ops): the device operations must be
+    exactly one ``kernel`` a call -- every operation a kernel the checks
+    name, and each kernel as many times as calls name it -- or
+    AssertionError.  Returns kernel -> count."""
+    import collections
+    want = collections.Counter(kernel for _, _, kernel in checks)
+
+    def every_call():
+        for _, call, _ in checks:
+            call()
+
+    got = collections.Counter()
+    for key, count in device_ops(every_call).items():
+        names = [kernel for kernel in want if kernel in key]
+        if len(names) != 1:
+            raise AssertionError(f"{checks[0][0]} ... {checks[-1][0]}: "
+                                 f"device operation {key!r} x{count}, "
+                                 f"expected only {sorted(want)}")
+        got[names[0]] += count
+    if got != want:
+        raise AssertionError(f"{checks[0][0]} ... {checks[-1][0]}: device "
+                             f"operations {dict(got)} for {len(checks)} "
+                             f"calls, expected one a call: {dict(want)}")
+    return dict(got)
 
 
 def floor_ms() -> float:
@@ -436,6 +488,35 @@ def layout_agreement() -> int:
                         f"pipelined layout at N={n} block_m={bm} "
                         f"block_k={bk}: kernel {got}, wrapper {want}")
                 cases += 1
+    return cases
+
+
+def quant_layout_agreement() -> int:
+    """B8/B9's work split as the wrapper computes it (quant_gemm._layout)
+    against the library's own (quant_gemm_layout), over a grid of shapes,
+    designs and grids: both must accept and refuse the same cases, with
+    the same layout.  Returns the number of cases."""
+    from repro_torch.kernels import quant_gemm as qg
+    cases = 0
+    dims = (1, 3, 4, 16, 17, 64, 2304, 2311)
+    for m in dims:
+        for n in dims:
+            for k in (16, 48, 2304, 2320, 5888):
+                grids = {1, 7, 132, 270, 288, 576}
+                for design in range(len(qg.DESIGNS) + 1):
+                    for ctas in sorted(grids | {qg.launch_plan(
+                            m, n, k, 132)["ctas"]}):
+                        try:
+                            want = qg._layout(m, n, k, design, ctas)
+                        except ValueError:
+                            want = None
+                        got = qg.layout_of_kernel(m, n, k, design, ctas)
+                        if got != want:
+                            raise AssertionError(
+                                f"quant_gemm layout at m={m} n={n} k={k} "
+                                f"design={design} ctas={ctas}: kernel "
+                                f"{got}, wrapper {want}")
+                        cases += 1
     return cases
 
 
@@ -796,8 +877,74 @@ def walk_cases(dev, log) -> int:
     return cases
 
 
-def baseline_cases(dev, log):
-    """Phase 3, B7-B9: against their plain versions, timed."""
+def rival_wide(source, log):
+    """Another design's B8/B9 source (``--rival-wide``: a quant_gemm.cu
+    whose wide kernel meets its CTAs stream-K, in arrival counters and
+    partial slots passed after ``out``, as the design this one replaced
+    did), built like the shipped one and returned as call(a, b, out,
+    scale=None), which launches its wide kernel on its own plan: its
+    layout's tiles and K units, as many CTAs as fit the SMs by its shared
+    memory, zeroed counters and slots of up to 128 x 256 int32 a CTA and
+    tile.  Checked and timed beside the shipped wide kernel at T=512; no
+    wrapper launches it."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import quant_gemm as qg
+    source = Path(source).resolve()
+    lib_path = _build.BUILD_DIR / f"librival-{source.stat().st_mtime_ns}.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    res = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I",
+                          str(_build.CSRC), "-o", str(lib_path), str(source)],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the rival {source}:\n"
+                           f"{res.stdout}{res.stderr}")
+    log(f"  rival wide design {source} built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    lib = ctypes.CDLL(str(lib_path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.quant_gemm_i32.argtypes = [p] * 5 + [i] * 5 + [p]
+    lib.quant_gemm_fused.argtypes = [p] * 7 + [i] * 8 + [p]
+    lib.quant_gemm_layout.argtypes = [i] * 5 + [p]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    work = {}
+
+    def call(a, b, out, scale=None):
+        m, k = a.shape
+        n = b.shape[1]
+        lay = (ctypes.c_int * 5)()
+        if lib.quant_gemm_layout(m, n, k, qg.WIDE, 1, lay) != 0:
+            raise RuntimeError(f"rival refuses wide at {m}x{n}x{k}")
+        tiles, units, smem = lay[1], lay[2], lay[4]
+        ctas = min(tiles * units, sms * max(1, 232448 // (smem + 1024)))
+        if (tiles, ctas) not in work:
+            work[tiles, ctas] = (
+                torch.zeros(tiles, dtype=torch.int32, device=a.device),
+                torch.empty(2 * ctas * 128 * 256, dtype=torch.int32,
+                            device=a.device))
+        counters, slots = (t.data_ptr() for t in work[tiles, ctas])
+        stream = torch.cuda.current_stream().cuda_stream
+        if scale is None:
+            err = lib.quant_gemm_i32(a.data_ptr(), b.data_ptr(),
+                                     out.data_ptr(), counters, slots, m, n,
+                                     k, qg.WIDE, ctas, stream)
+        else:
+            err = lib.quant_gemm_fused(a.data_ptr(), b.data_ptr(),
+                                       scale.data_ptr(), None, out.data_ptr(),
+                                       counters, slots, m, n, k, qg.WIDE,
+                                       ctas, 1, 0, 0, stream)
+        if err != 0:
+            raise RuntimeError(f"rival launch failed with CUDA error {err}")
+        return out
+
+    return call
+
+
+def baseline_cases(dev, log, rival_sources=()):
+    """Phase 3, B7-B9: against their plain versions, timed; at T=512 a
+    rival wide design beside B8/B9's shipped one (rival_wide)."""
     import torch
     from repro_torch.core import quant
     from repro_torch.kernels import encode
@@ -806,6 +953,11 @@ def baseline_cases(dev, log):
     gen = torch.Generator(device=dev).manual_seed(2718)
     per_kernel = {name: [] for name in BASELINE}
     err = dict.fromkeys(BASELINE, 0.0)
+    wide_ms = {"quant_gemm": 0.0, "quant_gemm_fused": 0.0}
+    wide_bound = dict(wide_ms)
+    wide_lib = 0.0
+    rivals = {str(src): rival_wide(src, log) for src in rival_sources}
+    on_rival = {src: dict(wide_ms) for src in rivals}
 
     def int8(*shape):
         return torch.randint(-128, 128, shape, generator=gen, device=dev,
@@ -858,45 +1010,64 @@ def baseline_cases(dev, log):
             n=None, per_layer=per_layer)
         del x_cold
 
-    # B9 quant_gemm in the planned orientation (the weight as A [M, K],
-    # the activations as B [K, T]) and B8 quant_gemm_fused in the serving
-    # one (the activations as A [T, K], the weight as B [K, M]), T tokens
-    for m, k, per_layer in PATH_SHAPES:
+    # B9 quant_gemm and B8 quant_gemm_fused at every width T, each in both
+    # orientations: the weight as A [M, K] with T token columns B [K, T]
+    # (B9 as the planned path calls it) and T token rows A [T, K] with the
+    # weight as B [K, M] (B8 as the serving path calls it); a ragged shape
+    # as well (M and K multiples of no tile but 16)
+    def orientations(w, wt, x, xt):
+        return (("weight as A", w, xt), ("weight as B", x, wt))
+
+    def whole(a, b):
+        """Blocks of the reference's contract that divide any shape."""
+        return dict(block_m=a.shape[0], block_n=b.shape[1], block_k=16)
+
+    for m, k, per_layer in PATH_SHAPES + (RAGGED_SHAPE,):
         w = int8(m, k)                     # the weight's rows [M, K]
         wt = w.t().contiguous()            # [K, M]
-        for t in (1, 4, 512):
+        for t in QUANT_TS:
             x = int8(t, k)
             xt = x.t().contiguous()
-            where = f"M={m} K={k} T={t}"
-            kw9 = dict(block_m=128, block_n=min(t, 128), block_k=256)
-            check("quant_gemm", qg.quant_gemm(w, xt, **kw9),
-                  qg.quant_gemm_plain(w, xt, **kw9), True, f"plain at {where}")
-            kw8 = dict(block_m=min(t, 128), block_n=128, block_k=256)
-            for axis in ("n", "m"):
-                shape = (1, m) if axis == "n" else (t, 1)
-                scale = torch.rand(shape, generator=gen, device=dev) * 1e-3
-                bias = torch.randn(shape, generator=gen, device=dev)
-                for act in (None, "silu", "gelu", "relu2"):
-                    for b in (None, bias):
-                        args = (x, wt, scale, b)
-                        fkw = dict(kw8, activation=act, epilogue_axis=axis)
-                        check("quant_gemm_fused",
-                              qg.quant_gemm_fused(*args, **fkw),
-                              qg.quant_gemm_fused_plain(*args, **fkw),
-                              act is None, f"plain at {where} axis={axis} "
-                              f"act={act} bias={b is not None}")
-                bkw = dict(kw8, epilogue_axis=axis, out_dtype=torch.bfloat16)
-                check("quant_gemm_fused",
-                      qg.quant_gemm_fused(x, wt, scale, bias, **bkw),
-                      qg.quant_gemm_fused_plain(x, wt, scale, bias, **bkw),
-                      True, f"plain at {where} axis={axis} bf16")
-            if t == 1:
+            for orient, a, b in orientations(w, wt, x, xt):
+                where = f"M={m} K={k} T={t} {orient}"
+                blocks = whole(a, b)
+                check("quant_gemm", qg.quant_gemm(a, b, **blocks),
+                      qg.quant_gemm_plain(a, b, **blocks), True,
+                      f"plain at {where}")
+                for axis in ("n", "m"):
+                    shape = ((1, b.shape[1]) if axis == "n"
+                             else (a.shape[0], 1))
+                    scale = torch.rand(shape, generator=gen,
+                                       device=dev) * 1e-3
+                    bias = torch.randn(shape, generator=gen, device=dev)
+                    for act in ACTS:
+                        for bb in (None, bias):
+                            fkw = dict(blocks, activation=act,
+                                       epilogue_axis=axis)
+                            check("quant_gemm_fused",
+                                  qg.quant_gemm_fused(a, b, scale, bb, **fkw),
+                                  qg.quant_gemm_fused_plain(a, b, scale, bb,
+                                                            **fkw),
+                                  act is None, f"plain at {where} "
+                                  f"axis={axis} act={act} "
+                                  f"bias={bb is not None}")
+                    bkw = dict(blocks, epilogue_axis=axis,
+                               out_dtype=torch.bfloat16)
+                    check("quant_gemm_fused",
+                          qg.quant_gemm_fused(a, b, scale, bias, **bkw),
+                          qg.quant_gemm_fused_plain(a, b, scale, bias, **bkw),
+                          True, f"plain at {where} axis={axis} bf16")
+            if per_layer == 0 or t not in (4, 512):
                 continue
-            # timing, L2-cold on the weight: B9, B8 (axis 'n', no bias),
-            # their plain versions, torch._int_mm on the same product
+            # timing, L2-cold on the weight: B9 (weight as A), B8 (weight
+            # as B, axis 'n', no bias), their plain versions, torch._int_mm
+            # on the same product
+            kw9 = dict(block_m=128, block_n=min(t, 128), block_k=256)
+            kw8 = dict(block_m=min(t, 128), block_n=128, block_k=256)
             xpad = torch.zeros((max(8, t), k), dtype=torch.int8, device=dev)
             xpad[:t] = x
             w_cold = cold_copies(w)
+            where = f"M={m} K={k} T={t}"
             try:
                 torch._int_mm(w, xpad.t())
                 lib_ms = cuda_ms(lambda i: torch._int_mm(
@@ -905,22 +1076,109 @@ def baseline_cases(dev, log):
                 log(f"  torch._int_mm unavailable at {where}: {e}")
                 lib_ms = None
             shape = dict(m=m, k_pad=k, n=t, per_layer=per_layer)
-            row("quant_gemm",
-                cuda_ms(lambda i: qg.quant_gemm(w_cold[i % len(w_cold)], xt,
-                                                **kw9)),
-                cuda_ms(lambda i: qg.quant_gemm_plain(w, xt, **kw9), 5, 1),
-                lib_ms, m * k + k * t + 4 * m * t, 2 * m * t * k, **shape)
-            del w_cold
             wt_cold = cold_copies(wt)
             scale = torch.rand((1, m), generator=gen, device=dev)
-            row("quant_gemm_fused",
-                cuda_ms(lambda i: qg.quant_gemm_fused(
-                    x, wt_cold[i % len(wt_cold)], scale, **kw8)),
+            b9 = (lambda i: qg.quant_gemm(w_cold[i % len(w_cold)], xt, **kw9))
+            b8 = (lambda i: qg.quant_gemm_fused(
+                x, wt_cold[i % len(wt_cold)], scale, **kw8))
+            row("quant_gemm", cuda_ms(b9),
+                cuda_ms(lambda i: qg.quant_gemm_plain(w, xt, **kw9), 5, 1),
+                lib_ms, m * k + k * t + 4 * m * t, 2 * m * t * k, **shape)
+            row("quant_gemm_fused", cuda_ms(b8),
                 cuda_ms(lambda i: qg.quant_gemm_fused_plain(
                     x, wt, scale, **kw8), 5, 1),
                 lib_ms, t * k + k * m + 4 * t * m + 4 * m, 2 * m * t * k,
                 **shape)
-            del wt_cold
+            for src, rival in rivals.items() if t == 512 else ():
+                # a rival wide design: checked and timed the same way,
+                # beside the shipped one, on its own plan
+                o9 = torch.empty((m, t), dtype=torch.int32, device=dev)
+                o8 = torch.empty((t, m), dtype=torch.float32, device=dev)
+                r9 = (lambda i: rival(w_cold[i % len(w_cold)], xt, o9))
+                r8 = (lambda i: rival(x, wt_cold[i % len(wt_cold)], o8,
+                                      scale))
+                check("quant_gemm", r9(0), qg.quant_gemm_plain(
+                    w_cold[0], xt, **kw9), True, f"plain, {src}, at {where}")
+                check("quant_gemm_fused", r8(0), qg.quant_gemm_fused_plain(
+                    x, wt_cold[0], scale, **kw8), True,
+                    f"plain, {src}, at {where}")
+                for name, call in (("quant_gemm", r9),
+                                   ("quant_gemm_fused", r8)):
+                    on_rival[src][name] += cuda_ms(call) * per_layer
+            if t == 512:
+                for name in wide_ms:
+                    wide_ms[name] += per_kernel[name][-1]["ms"] * per_layer
+                    wide_bound[name] += (per_kernel[name][-1]["bound_ms"]
+                                         * per_layer)
+                wide_lib += (lib_ms or 0.0) * per_layer
+            del w_cold, wt_cold
+    log(f"  wide kernel, one layer's seven calls at T=512 (ms): shipped "
+        f"{json.dumps(wide_ms)}, rivals {json.dumps(on_rival)}, _int_mm "
+        f"{wide_lib:.5f}, floor_ms {7 * floor_ms():.5f}, bound "
+        f"{json.dumps(wide_bound)}")
+    log(f"  quant_gemm, quant_gemm_fused: bit-identical to the plain "
+        f"versions (with an activation within tolerance) at T in "
+        f"{QUANT_TS}, both orientations, shapes {PATH_SHAPES} and ragged "
+        f"{RAGGED_SHAPE[:2]}, both epilogue axes, with and without bias, "
+        f"float32 and bfloat16")
+
+    # two calls in a row on one stream, different operands, one sync:
+    # neither result may depend on the other call
+    m, k, _ = PATH_SHAPES[0]
+    w = int8(m, k)
+    wt = w.t().contiguous()
+    scale = torch.rand((1, m), generator=gen, device=dev)
+    for t in (4, 512):
+        calls = []
+        for _ in range(2):
+            x = int8(t, k)
+            xt = x.t().contiguous()
+            sm = scale.t().contiguous()
+            calls.append((x, xt,
+                          qg.quant_gemm(w, xt, **whole(w, xt)),
+                          qg.quant_gemm(x, wt, **whole(x, wt)),
+                          qg.quant_gemm_fused(x, wt, scale, **whole(x, wt)),
+                          qg.quant_gemm_fused(w, xt, sm, epilogue_axis="m",
+                                              **whole(w, xt))))
+        for i, (x, xt, g9a, g9b, g8b, g8a) in enumerate(calls):
+            what = f"plain, call {i + 1} of two in a row at T={t}"
+            check("quant_gemm", g9a,
+                  qg.quant_gemm_plain(w, xt, **whole(w, xt)), True, what)
+            check("quant_gemm", g9b,
+                  qg.quant_gemm_plain(x, wt, **whole(x, wt)), True, what)
+            check("quant_gemm_fused", g8b, qg.quant_gemm_fused_plain(
+                x, wt, scale, **whole(x, wt)), True, what)
+            check("quant_gemm_fused", g8a, qg.quant_gemm_fused_plain(
+                w, xt, scale.t().contiguous(), epilogue_axis="m",
+                **whole(w, xt)), True, what)
+
+    # one device operation a call at every width (torch.profiler, one
+    # session over every call)
+    symbol = ("quant_rows_kernel", "quant_cols_kernel", "quant_wide_kernel")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    checks = []
+    for t in QUANT_TS:
+        x = int8(t, k)
+        xt = x.t().contiguous()
+        for orient, a, b in orientations(w, wt, x, xt):
+            kern = symbol[qg.launch_plan(a.shape[0], b.shape[1], k,
+                                         sms)["design"]]
+            s = torch.rand((1, b.shape[1]), generator=gen, device=dev)
+            kw = whole(a, b)
+            where = f"M={m} K={k} T={t} {orient}"
+            checks += [
+                (f"quant_gemm {where}",
+                 lambda a=a, b=b, kw=kw: qg.quant_gemm(a, b, **kw), kern),
+                (f"quant_gemm_fused {where}",
+                 lambda a=a, b=b, s=s, kw=kw: qg.quant_gemm_fused(a, b, s,
+                                                                  **kw),
+                 kern)]
+    counts = one_device_op_each(checks)
+    log(f"  quant_gemm, quant_gemm_fused: one device operation a call at "
+        f"T in {QUANT_TS}, both orientations: {len(checks)} calls, "
+        f"{json.dumps(counts)}")
+    log(f"  quant_gemm layout: wrapper == library in "
+        f"{quant_layout_agreement()} cases")
     return per_kernel, err
 
 
@@ -1164,7 +1422,16 @@ def unfused_routes(eng, dev) -> dict:
     return {"route": route, "weights": len(records), "launches": launches}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--rival-wide", metavar="QUANT_GEMM_CU",
+                        action="append", default=[],
+                        help="another design's csrc/quant_gemm.cu (its wide "
+                             "kernel meeting stream-K), checked and timed "
+                             "beside the shipped wide B8/B9 kernel at T=512 "
+                             "(phase 3); may be given more than once")
+    args = parser.parse_args(argv)
     print(card_line(), flush=True)
     import torch
     if not torch.cuda.is_available():
@@ -1195,7 +1462,8 @@ def main() -> int:
     floor = floor_ms()
     log(f"  floor_ms {floor:.5f}: cuda_ms of an empty launch")
     per_kernel, err = kernel_cases(dev, log)
-    for rows, errs in (sparse_cases(dev, log), baseline_cases(dev, log)):
+    for rows, errs in (sparse_cases(dev, log),
+                       baseline_cases(dev, log, args.rival_wide)):
         per_kernel.update(rows)
         err.update(errs)
     log(f"  B1-B4 walk edges: {walk_cases(dev, log)} cases")

@@ -8,8 +8,9 @@ The kernel-level API is the reference's: ``encode_planes`` and
 encodes an EN-T int8 operand with the ``ent_encode`` kernel (B7);
 ``bw_gemm`` / ``bw_gemm_fused`` on a ``PlannedOperand`` (B2 / B1) and its
 sparse and pipelined twins (B3-B6); and the parallel-MAC baseline
-``quant_gemm`` / ``quant_gemm_fused`` (B9 / B8), which pad to the
-blocks, call the kernel and slice back.  B is int8 ``[K, N]`` throughout.
+``quant_gemm`` / ``quant_gemm_fused`` (B9 / B8), which pad K to 16
+and call the kernel (whose tiles take any M and N).  B is int8
+``[K, N]`` throughout.
 
 Every entry point is configured by one
 :class:`repro_torch.engine.QuantSpec`.  A plan record built here holds the
@@ -537,56 +538,62 @@ def bw_gemm_sparse_fused_pipelined(planned: PlannedOperand, b: torch.Tensor,
 # The parallel-MAC baseline (B9 / B8)
 # ---------------------------------------------------------------------------
 
-def _padded_operands(a, b, block_m: int, block_n: int, block_k: int):
+# the kernels' K step: K is padded to it, M and N not at all
+_QUANT_K = 16
+
+
+def _padded_operands(a, b):
+    """a [M, K], b [K, N] as int8 with K padded to _QUANT_K (zeros add
+    zero), and the blocks (M, N, _QUANT_K) the kernel wrappers check the
+    padded shapes against."""
     m, k = a.shape
     k2, n = b.shape
     if k != k2:
         raise ValueError(f"inner-dim mismatch: a has K={k} columns but b "
                          f"has K={k2} rows")
-    a = _pad_to(_pad_to(a.to(torch.int8), block_m, 0), block_k, 1)
-    b = _pad_to(_pad_to(b.to(torch.int8), block_k, 0), block_n, 1)
-    return a.contiguous(), b.contiguous(), m, n
+    a = _pad_to(a.to(torch.int8), _QUANT_K, 1).contiguous()
+    b = _pad_to(b.to(torch.int8), _QUANT_K, 0).contiguous()
+    return a, b, dict(block_m=m, block_n=n, block_k=_QUANT_K)
 
 
 def quant_gemm(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 128,
                block_n: int = 128, block_k: int = 256) -> torch.Tensor:
-    """Baseline int8 GEMM through B9: a [M, K] @ b [K, N] -> int32 [M, N]
-    (pads to block multiples, slices back)."""
-    a, b, m, n = _padded_operands(a, b, block_m, block_n, block_k)
-    out = _qg.quant_gemm(a, b, block_m=block_m, block_n=block_n,
-                         block_k=block_k)
-    return out[:m, :n]
+    """Baseline int8 GEMM through B9: a [M, K] @ b [K, N] -> int32 [M, N].
+
+    block_m, block_n and block_k are the reference's tile sizes, kept for
+    its signature: the port pads K to 16 only, since the kernel tiles any
+    M and N itself (the reference pads all three to its blocks; the
+    padding's zeros change no result)."""
+    a, b, blocks = _padded_operands(a, b)
+    return _qg.quant_gemm(a, b, **blocks)
 
 
-def _channel_cols(vec: torch.Tensor, name: str, n: int,
-                  block_n: int) -> torch.Tensor:
-    """[N] per-output-channel vector -> a padded [1, N_pad] row."""
+def _channel_cols(vec: torch.Tensor, name: str, n: int) -> torch.Tensor:
+    """[N] per-output-channel vector -> a [1, N] float32 row."""
     if vec.numel() != n:
         raise ValueError(f"quant_gemm_fused: {name} has {vec.numel()} "
                          f"entries; expected one per output column, N={n}")
-    return _pad_to(vec.to(torch.float32).reshape(1, n), block_n,
-                   1).contiguous()
+    return vec.to(torch.float32).reshape(1, n).contiguous()
 
 
 def quant_gemm_fused(a: torch.Tensor, b: torch.Tensor, scale, bias=None, *,
                      activation=None, block_m: int = 128,
                      block_n: int = 128, block_k: int = 256,
                      out_dtype=torch.float32) -> torch.Tensor:
-    """Baseline int8 GEMM + fused dequant epilogue through B8 (pads,
-    slices back).
+    """Baseline int8 GEMM + fused dequant epilogue through B8 (K padded
+    to 16; the blocks as in :func:`quant_gemm`).
 
     scale / bias: per-output-channel vectors of length N (epilogue axis
     'n').  Returns ``out_dtype`` [M, N].
     """
-    a, b, m, n = _padded_operands(a, b, block_m, block_n, block_k)
-    scale = _channel_cols(scale, "scale", n, block_n)
+    a, b, blocks = _padded_operands(a, b)
+    n = b.shape[1]
+    scale = _channel_cols(scale, "scale", n)
     if bias is not None:
-        bias = _channel_cols(bias, "bias", n, block_n)
-    out = _qg.quant_gemm_fused(a, b, scale, bias, activation=activation,
-                               epilogue_axis="n", out_dtype=out_dtype,
-                               block_m=block_m, block_n=block_n,
-                               block_k=block_k)
-    return out[:m, :n]
+        bias = _channel_cols(bias, "bias", n)
+    return _qg.quant_gemm_fused(a, b, scale, bias, activation=activation,
+                                epilogue_axis="n", out_dtype=out_dtype,
+                                **blocks)
 
 
 def planned_dense_apply(plan: dict, x: torch.Tensor, spec, n_out: int, *,

@@ -234,6 +234,27 @@ def test_ops_quant_gemm_and_bw_gemm_on_unaligned_shapes(m, k, n):
         got.numpy(), np.asarray(jops.bw_gemm(jplanned, jnp.asarray(b))))
 
 
+def test_ops_quant_gemm_at_decode_with_an_odd_m():
+    """T=4 through the ops wrappers, which pad only K (to 16) where the
+    reference pads all three to its 128 x 128 x 256 blocks: B9 with 301
+    weight rows against 4 token columns, and B8 with 4 token rows against
+    301 output channels, equal to the reference."""
+    rng = np.random.default_rng(301)
+    w, x = _int8(rng, (301, 200)), _int8(rng, (4, 200))
+    got = tops.quant_gemm(torch.from_numpy(w), torch.from_numpy(x.T.copy()))
+    assert got.shape == (301, 4) and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jops.quant_gemm(
+        jnp.asarray(w), jnp.asarray(x.T.copy()))))
+    scale = (rng.random(301) * 1e-3).astype(np.float32)
+    got = tops.quant_gemm_fused(torch.from_numpy(x),
+                                torch.from_numpy(w.T.copy()),
+                                torch.from_numpy(scale))
+    assert got.shape == (4, 301)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(
+        jops.quant_gemm_fused(jnp.asarray(x), jnp.asarray(w.T.copy()),
+                              jnp.asarray(scale))))
+
+
 # ---------------------------------------------------------------------------
 # B8 quant_gemm_fused and the ops wrappers of B8 / B1
 # ---------------------------------------------------------------------------
