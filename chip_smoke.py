@@ -12,7 +12,7 @@ Phases (any failure exits non-zero and prints no result line):
    csrc/`` -- ``bw_gemm.cu``, ``bw_gemm_sparse.cu``, ``encode.cu`` and
    ``quant_gemm.cu`` -- with nvcc, one process a library, all started
    together, and prints the build seconds and ptxas' register and spill
-   report of each kernel instantiation.
+   report of each kernel instantiation; a spill in any is a failure.
 3. Kernels against their plain versions, at the main path's shapes
    (M, K_pad) in {(2304, 2304), (5760, 2304), (2304, 5888)}.  First
    ``floor_ms``, the timing method's own floor (``cuda_ms`` of an empty
@@ -22,7 +22,12 @@ Phases (any failure exits non-zero and prints no result line):
    Dense (B1 bw_gemm_fused, B2 bw_gemm), N in {1, 2, 3, 4, 8, 512}, timed
    at N in {1, 4, 512}: seeded weights planned at planes=3, masks with a
    False block over non-zero digits; torch.profiler must see exactly one
-   device operation per B1 and per B2 call.
+   device operation per B1 and per B2 call at every N (one session).
+   B2's edges: weights planned at planes 2, 3 and 4 and bit-serially,
+   digits of 2, 3, 4 and 8 planes (masks with a False block over
+   non-zero digits), a ragged 2311 x 2320 weight through ops.bw_gemm
+   against the exact product, 80 x 128 blocks and two calls in a row, at
+   N in {1, 3, 4, 8}.
    Sparse (B3 bw_gemm_sparse_fused, B4 bw_gemm_sparse) and pipelined (B5
    bw_gemm_sparse_fused_pipelined, B6 bw_gemm_sparse_pipelined), N in
    {1, 2, 3, 4, 8}: seeded weights at planes=2, schedules in both orders
@@ -44,11 +49,17 @@ Phases (any failure exits non-zero and prints no result line):
    CTAs search for their run), zero-weight padding, block_k 16 (runs of
    up to 576 entries) and block_m 24; B1-B4 against their plain
    versions, B3 == B1 and B4 == B2 on the mask the schedule was built
-   from.  B7 ent_encode, blocks 128 x 256: uniform int8 and planes=3
-   weights at the three shapes, and the 256 int8 values tiled into one
-   block; digits and mask must be bit-identical.  B9 quant_gemm and B8
-   quant_gemm_fused, T in {1, 2, 3, 4, 8, 16, 17, 64, 512}, each in both
-   orientations (the weight as A [M, K] with T token columns B [K, T], as
+   from.  B7 ent_encode: uniform int8 and planes=3 weights at the three
+   shapes and at 768 x 4096, the 256 int8 values tiled, and a 768 x 4096
+   zero input with one non-zero byte planted in most plan blocks (in the
+   block's last 16-byte chunk, which the CTA's last warp encodes in its
+   last pass; values whose top live plane changes from block to block),
+   at blocks 128 x 256 (the plans'), 128 x 128 (the reference's
+   default), 24 x 16 and 128 x 1024 (a CTA loops over four passes);
+   digits and mask must be bit-identical, and torch.profiler must see
+   exactly one device operation a call; timed at 128 x 256.  B9
+   quant_gemm and B8 quant_gemm_fused, T in {1, 2, 3, 4, 8, 16, 17, 64,
+   512}, each in both orientations (the weight as A [M, K] with T token columns B [K, T], as
    the planned path calls B9, and T token rows A [T, K] with the weight
    as B [K, M], as the serving path calls B8), at the three shapes and a
    ragged one (M 2311, K 2320): both epilogue axes, with and without a
@@ -141,6 +152,12 @@ ACT_RTOL, ACT_ATOL = 1e-5, 1e-6
 QUANT_TS = (1, 2, 3, 4, 8, 16, 17, 64, 512)   # phase 3's widths for B8/B9
 # M, K of no tile but 16 (per_layer 0: checked, not timed)
 RAGGED_SHAPE = (2311, 2320, 0)
+# B7's block shapes: the plans', the reference's default, a small odd one,
+# and one a CTA takes in four passes (csrc/encode.cu ent_threads)
+ENCODE_BLOCKS = ((128, 256), (128, 128), (24, 16), (128, 1024))
+# the bytes planted one a block in B7's sparse case, block after block:
+# top live planes 0, 1, 1, 2, 2, 3, 3, 3, 3, and an empty block
+ENCODE_PLANTED = (1, -3, 4, -12, 16, -48, 64, -128, 127, 0)
 
 
 def log(msg: str) -> None:
@@ -209,6 +226,7 @@ def kernel_cases(dev, log):
     gen = torch.Generator(device=dev).manual_seed(1234)
     per_kernel = {"bw_gemm_fused": [], "bw_gemm": []}
     err = {"bw_gemm_fused": 0.0, "bw_gemm": 0.0}
+    one_op = []                   # (what, call, kernel) at the first shape
     for m, k, per_layer in PATH_SHAPES:
         w = torch.randn((k, m), generator=gen, device=dev)
         qw, sw = quant.quantize_to_planes(w, 3, axis=0)
@@ -273,15 +291,16 @@ def kernel_cases(dev, log):
                     raise AssertionError(
                         f"bw_gemm_fused[{act}] != plain at M={m} "
                         f"K={k_pad} N={n}: max |diff| {diff}")
-            if m == PATH_SHAPES[0][0] and k == PATH_SHAPES[0][1] and n == 4:
-                for name, kern, call in (
-                        ("bw_gemm_fused", "bw_gemm_fused_kernel",
-                         lambda: bwk.bw_gemm_fused(digits, b, mask, scale,
-                                                   None, sx_cols, **kw)),
-                        ("bw_gemm", "bw_gemm_i32_kernel",
-                         lambda: bwk.bw_gemm(digits, b, mask, **kw))):
-                    log(f"  {name}: device operations a call "
-                        f"{one_device_op(name, call, kern)}")
+            if m == PATH_SHAPES[0][0] and k == PATH_SHAPES[0][1]:
+                one_op += [
+                    (f"bw_gemm_fused N={n}",
+                     lambda d=digits, b=b, mk=mask, s=scale, sx=sx_cols:
+                     bwk.bw_gemm_fused(d, b, mk, s, None, sx, **kw),
+                     "bw_gemm_fused_kernel"),
+                    (f"bw_gemm N={n}",
+                     lambda d=digits, b=b, mk=mask: bwk.bw_gemm(d, b, mk,
+                                                                **kw),
+                     "bw_gemm_i32_kernel")]
             if n not in TIMED_NS:
                 continue
 
@@ -325,6 +344,9 @@ def kernel_cases(dev, log):
                     f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms"
                     f"  bound {row['bound_ms']:.4f} ms")
             del d_cold
+    counts = one_device_op_each(one_op)
+    log(f"  bw_gemm, bw_gemm_fused: one device operation a call at N in "
+        f"{DENSE_NS}: {len(one_op)} calls, {json.dumps(counts)}")
     return per_kernel, err
 
 
@@ -375,13 +397,15 @@ def split_rows(sched, n: int, ctas: int) -> int:
     return sum(len(cs) > 1 for cs in owner.values())
 
 
-def device_ops(fn, tries: int = 10) -> dict:
+def device_ops(fn, least: int = 1, tries: int = 10) -> dict:
     """Name -> count of the device operations (kernels, memsets, copies)
     that one fn() call queues, by torch.profiler: fn() runs once in a
     warm-up step and once in the active step, and only the active step
     counts (the tracer has been seen to miss a session's first launches,
-    every time, once torch._int_mm has run).  A trace that holds no device
-    event at all is taken again, up to ``tries`` times."""
+    every time, once torch._int_mm has run).  A trace that holds fewer
+    than ``least`` device events is taken again, up to ``tries`` times:
+    the tracer has also been seen to drop the first 26 of 36 launches of
+    an active step.  A trace with more events is returned as it is."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     fn()
@@ -395,6 +419,7 @@ def device_ops(fn, tries: int = 10) -> dict:
 
     for attempt in range(tries):
         time.sleep(0.25 * attempt)
+        seen.clear()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1),
@@ -403,8 +428,11 @@ def device_ops(fn, tries: int = 10) -> dict:
                 fn()
                 torch.cuda.synchronize()
                 prof.step()
-        if seen:
+        if sum(seen.values()) >= least:
             break
+        log(f"  device_ops: trace {attempt + 1} held "
+            f"{sum(seen.values())} of at least {least} device events, "
+            f"taken again")
     return seen
 
 
@@ -432,7 +460,7 @@ def one_device_op_each(checks) -> dict:
             call()
 
     got = collections.Counter()
-    for key, count in device_ops(every_call).items():
+    for key, count in device_ops(every_call, least=len(checks)).items():
         names = [kernel for kernel in want if kernel in key]
         if len(names) != 1:
             raise AssertionError(f"{checks[0][0]} ... {checks[-1][0]}: "
@@ -877,6 +905,96 @@ def walk_cases(dev, log) -> int:
     return cases
 
 
+def dense_edge_cases(dev, log) -> int:
+    """Phase 3, B2 (bw_gemm, csrc/bw_gemm.cu) at the edges: weights
+    planned at planes 2, 3 and 4 and bit-serially (8 planes, radix 2), and
+    digits of exactly 2, 3, 4 and 8 planes, each with a False block over
+    non-zero digits, at N in {1, 3, 4, 8}; a ragged 2311 x 2320 weight
+    through ops.bw_gemm against the exact product, and 80 x 128 blocks on
+    2320 x 2304; two calls in a row on one stream.  Every result
+    bit-identical to the plain version.  Returns the cases."""
+    import torch
+    from repro_torch.core import quant
+    from repro_torch.kernels import bw_gemm as bwk
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
+
+    gen = torch.Generator(device=dev).manual_seed(3141)
+    cases = 0
+
+    def int8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    def hold(what, digits, mask, bm, bk, radix):
+        nonlocal cases
+        kw = dict(block_m=bm, block_k=bk, radix=radix)
+        for n in (1, 3, 4, 8):
+            b = int8(n, digits.shape[2])
+            got = bwk.bw_gemm(digits, b, mask, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(got, bwk.bw_gemm_plain(digits, b, mask,
+                                                      **kw)):
+                raise AssertionError(f"bw_gemm != plain on {what} at "
+                                     f"N={n}")
+            cases += 1
+
+    m, k = 2304, 2304
+    w = torch.randn((k, m), generator=gen, device=dev)
+    for planes, encoding in ((2, "ent"), (3, "ent"), (4, "ent"),
+                             (4, "bitserial")):
+        qw, _ = quant.quantize_to_planes(w, planes, axis=0)
+        pl = ops.plan_operand(qw.t(), encoding, 128, 256)
+        mask = pl.mask.clone()
+        if not bool(pl.digits[0, :128, :256].any()):
+            raise AssertionError(f"{encoding} planes={planes}: plane 0 "
+                                 f"block (0, 0) is empty")
+        mask[0, 0, 0] = False
+        hold(f"{encoding} plan at planes={planes} "
+             f"({pl.digits.shape[0]} digit planes)", pl.digits, mask, 128,
+             256, 2 if encoding == "bitserial" else 4)
+    for bw_n in (2, 3, 4, 8):
+        lo, hi = (-1, 2) if bw_n == 8 else (-2, 3)
+        digits = torch.randint(lo, hi, (bw_n, 640, 2304), generator=gen,
+                               device=dev, dtype=torch.int8)
+        mask = torch.rand((bw_n, 5, 9), generator=gen, device=dev) < 0.6
+        mask[0, 0, 0] = False
+        hold(f"{bw_n} digit planes", digits, mask, 128, 256,
+             2 if bw_n == 8 else 4)
+    # ragged: the ops layer pads a 2311 x 2320 weight to the blocks
+    wq = int8(2311, 2320)
+    pl = ops.plan_operand(wq, "ent", 128, 256)
+    for n in (1, 4, 8):
+        x = int8(2320, n)
+        got = ops.bw_gemm(pl, x)
+        if not torch.equal(got, kref.quant_gemm_ref(wq, x)):
+            raise AssertionError(f"ops.bw_gemm != the exact product on a "
+                                 f"ragged 2311 x 2320 weight at N={n}")
+        cases += 1
+    digits = torch.randint(-2, 3, (4, 2320, 2304), generator=gen,
+                           device=dev, dtype=torch.int8)
+    mask = torch.rand((4, 29, 18), generator=gen, device=dev) < 0.6
+    mask[0, 0, 0] = False
+    hold("2320 x 2304 at blocks 80 x 128", digits, mask, 80, 128, 4)
+    # two calls in a row on one stream, different activations, one sync
+    digits, mask = pl.digits, pl.mask
+    kw = dict(block_m=128, block_k=256, radix=4)
+    for n in (4, 8):
+        bs = [int8(n, digits.shape[2]) for _ in range(2)]
+        outs = [bwk.bw_gemm(digits, b, mask, **kw) for b in bs]
+        torch.cuda.synchronize()
+        for i, (b, got) in enumerate(zip(bs, outs)):
+            if not torch.equal(got, bwk.bw_gemm_plain(digits, b, mask,
+                                                      **kw)):
+                raise AssertionError(f"bw_gemm call {i + 1} of two in a "
+                                     f"row != plain at N={n}")
+        cases += 1
+    log(f"  bw_gemm edges: {cases} cases bit-identical to the plain "
+        f"version (plans at planes 2, 3, 4 and bit-serial, 2-8 digit "
+        f"planes, ragged, 80 x 128 blocks, two in a row)")
+    return cases
+
+
 def rival_wide(source, log):
     """Another design's B8/B9 source (``--rival-wide``: a quant_gemm.cu
     whose wide kernel meets its CTAs stream-K, in arrival counters and
@@ -983,22 +1101,58 @@ def baseline_cases(dev, log, rival_sources=()):
             f"{plain_ms:.4f} ms  _int_mm {lib} ms  bound "
             f"{r['bound_ms']:.4f} ms")
 
-    # B7 ent_encode at the plan shapes (blocks 128 x 256): uniform int8,
-    # and a seeded weight on the planes=3 grid (plane 3 empty), timed
+    # B7 ent_encode at the plan shapes: uniform int8, and a seeded weight
+    # on the planes=3 grid (plane 3 empty), and the 256 int8 values, at
+    # every block shape of ENCODE_BLOCKS, and a byte planted a block where
+    # only the last warp's flags can set the mask; one device operation a
+    # call; timed at the plans' blocks
     kw7 = dict(block_m=128, block_k=256)
     every = torch.arange(-128, 128, dtype=torch.int8,
-                         device=dev).repeat(128).reshape(128, 256)
+                         device=dev).repeat(384).reshape(384, 256)
     cases = [("all 256 int8 values", every)]
-    for m, k, per_layer in PATH_SHAPES:
+    for m, k, per_layer in PATH_SHAPES + ((768, 4096, 0),):
         w = torch.randn((m, k), generator=gen, device=dev)
         cases += [(f"uniform {m}x{k}", int8(m, k)),
                   (f"planes=3 {m}x{k}",
                    quant.quantize_to_planes(w, 3, axis=1)[0].contiguous())]
-    for what, x in cases:
-        d, mask = encode.ent_encode(x, **kw7)
-        dp, mp = encode.ent_encode_plain(x, **kw7)
-        check("ent_encode", d, dp, True, f"plain digits on {what}")
-        check("ent_encode", mask, mp, True, f"plain mask on {what}")
+    def planted(bm, bk, m=768, k=4096):
+        """Zeros, and in block (i, j) the byte ENCODE_PLANTED[(i * kb +
+        j) % 10] in the block's last row and last 16-byte chunk, at
+        column (i * kb + j) % 16 of it."""
+        x = torch.zeros((m, k), dtype=torch.int8, device=dev)
+        kb = k // bk
+        i = torch.arange(m // bm, device=dev)[:, None]
+        j = torch.arange(kb, device=dev)[None, :]
+        at = (i * kb + j).expand(m // bm, kb)
+        vals = torch.tensor(ENCODE_PLANTED, dtype=torch.int8, device=dev)
+        x[i * bm + bm - 1, j * bk + bk - 16 + at % 16] = \
+            vals[at % len(ENCODE_PLANTED)]
+        return x
+
+    checks = []
+    for bm, bk in ENCODE_BLOCKS:
+        blocks = dict(block_m=bm, block_k=bk)
+        for what, x in cases + [("one byte a block, in the last warp's "
+                                 "last chunk", planted(bm, bk))]:
+            if x.shape[0] % bm or x.shape[1] % bk:
+                continue
+            d, mask = encode.ent_encode(x, **blocks)
+            dp, mp = encode.ent_encode_plain(x, **blocks)
+            where = f"{what}, blocks {bm} x {bk}"
+            check("ent_encode", d, dp, True, f"plain digits on {where}")
+            check("ent_encode", mask, mp, True, f"plain mask on {where}")
+            planes = mp.flatten(1)
+            if what.startswith("one byte") and (
+                    bool(planes.all(1).any()) or not bool(planes.any(1).all())):
+                raise AssertionError(f"ent_encode: the planted mask on "
+                                     f"{where} has a full or empty plane")
+            checks.append((f"ent_encode {where}",
+                           lambda x=x, blocks=blocks: encode.ent_encode(
+                               x, **blocks), "ent_encode_kernel"))
+    counts = one_device_op_each(checks)
+    log(f"  ent_encode: bit-identical to the plain version on "
+        f"{len(checks)} (input, blocks) cases, blocks {ENCODE_BLOCKS}; "
+        f"one device operation a call: {json.dumps(counts)}")
     for m, k, per_layer in PATH_SHAPES:
         x = cases[[c[0] for c in cases].index(f"planes=3 {m}x{k}")][1]
         x_cold = cold_copies(x)
@@ -1451,11 +1605,17 @@ def main(argv=None) -> int:
     _build.load_all()
     log(f"[build] {', '.join(_build.SOURCES)}: "
         f"{time.perf_counter() - t0:.1f} s")
+    spills = []
     for name in _build.SOURCES:
         for line in _build.BUILD_LOGS.get(name, "").splitlines():
             if any(w in line for w in ("Function properties", "registers",
                                        "spill")):
                 log(f"  {line.strip()}")
+            if "spill" in line and not line.strip().endswith(
+                    "0 bytes spill stores, 0 bytes spill loads"):
+                spills.append(f"{name}: {line.strip()}")
+    if spills:
+        raise AssertionError(f"ptxas reports spills: {spills}")
 
     # -- 3. kernels against their plain versions -----------------------------
     log("[kernels] bit-exact and timed against the plain versions")
@@ -1467,6 +1627,7 @@ def main(argv=None) -> int:
         per_kernel.update(rows)
         err.update(errs)
     log(f"  B1-B4 walk edges: {walk_cases(dev, log)} cases")
+    dense_edge_cases(dev, log)
 
     # -- 4. the path at full width -------------------------------------------
     cfg = CONFIG

@@ -1,6 +1,6 @@
-// Device helpers shared by the bit-weight GEMM kernels (bw_gemm.cu,
-// bw_gemm_sparse.cu): the int8 dot product and the fused epilogue's
-// activations.
+// Device helpers shared by the port's kernels: the int8 dot product and
+// the fused epilogue's activations (bw_gemm.cu, bw_gemm_sparse.cu,
+// quant_gemm.cu), and a 4 x 4 byte transpose (quant_gemm.cu, encode.cu).
 #pragma once
 
 #include <cstdint>
@@ -16,6 +16,21 @@ __device__ __forceinline__ int dot16(const int4& a, const int4& b, int acc) {
   acc = __dp4a(a.z, b.z, acc);
   acc = __dp4a(a.w, b.w, acc);
   return acc;
+}
+
+// Four rows of four bytes (r_j holds b[k + j, n .. n + 3]) -> four
+// columns of four K-consecutive bytes (c_i holds b[k .. k + 3, n + i]).
+__device__ __forceinline__ void transpose4(uint32_t r0, uint32_t r1,
+                                           uint32_t r2, uint32_t r3,
+                                           uint32_t (&c)[4]) {
+  const uint32_t lo01 = __byte_perm(r0, r1, 0x5140);  // r0.0 r1.0 r0.1 r1.1
+  const uint32_t hi01 = __byte_perm(r0, r1, 0x7362);  // r0.2 r1.2 r0.3 r1.3
+  const uint32_t lo23 = __byte_perm(r2, r3, 0x5140);
+  const uint32_t hi23 = __byte_perm(r2, r3, 0x7362);
+  c[0] = __byte_perm(lo01, lo23, 0x5410);             // r0.0 r1.0 r2.0 r3.0
+  c[1] = __byte_perm(lo01, lo23, 0x7632);             // r0.1 r1.1 r2.1 r3.1
+  c[2] = __byte_perm(hi01, hi23, 0x5410);
+  c[3] = __byte_perm(hi01, hi23, 0x7632);
 }
 
 __device__ __forceinline__ float activate(float y, int act) {

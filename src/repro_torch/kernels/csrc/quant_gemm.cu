@@ -256,21 +256,6 @@ __device__ __forceinline__ void cluster_sum(int* part, int count,
   cluster.sync();                  // no CTA leaves while another reads it
 }
 
-// Four rows of four bytes (r_j holds b[k + j, n .. n + 3]) -> four
-// columns of four K-consecutive bytes (c_i holds b[k .. k + 3, n + i]).
-__device__ __forceinline__ void transpose4(uint32_t r0, uint32_t r1,
-                                           uint32_t r2, uint32_t r3,
-                                           uint32_t (&c)[4]) {
-  const uint32_t lo01 = __byte_perm(r0, r1, 0x5140);  // r0.0 r1.0 r0.1 r1.1
-  const uint32_t hi01 = __byte_perm(r0, r1, 0x7362);  // r0.2 r1.2 r0.3 r1.3
-  const uint32_t lo23 = __byte_perm(r2, r3, 0x5140);
-  const uint32_t hi23 = __byte_perm(r2, r3, 0x7362);
-  c[0] = __byte_perm(lo01, lo23, 0x5410);             // r0.0 r1.0 r2.0 r3.0
-  c[1] = __byte_perm(lo01, lo23, 0x7632);             // r0.1 r1.1 r2.1 r3.1
-  c[2] = __byte_perm(hi01, hi23, 0x5410);
-  c[3] = __byte_perm(hi01, hi23, 0x7632);
-}
-
 // store4 with the epilogue's scale and bias read from shared memory:
 // ep[0][at .. at + 3] and ep[1][...] on axis n, ep[0][at] and ep[1][at]
 // for all four on axis m.

@@ -12,6 +12,9 @@ with the carry chain unrolled over the BW=4 planes of an int8.  The mask
 flags each (plane, m-block, k-block) that holds a non-zero digit, so a
 GEMM can skip a plane block without reading its digits.
 
+The kernel encodes by table (:func:`ent_table`: byte p of word u is plane
+p's digit of the int8 whose bits are u), one CTA a plan block.
+
 ``ent_encode`` launches the kernel for a CUDA tensor (or raises) and runs
 the plain version for a CPU tensor; there is no fallback from one to the
 other.  It counts its kernel launches in ``ent_encode.launches``.
@@ -20,13 +23,23 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
+from repro_torch.core import encodings as enc
 from . import ref as kref
 
-__all__ = ["ent_encode", "ent_encode_plain", "BW"]
+__all__ = ["ent_encode", "ent_encode_plain", "ent_table", "BW"]
 
 BW = 4  # int8 in radix 4
+
+
+def ent_table() -> np.ndarray:
+    """The kernel's lookup table: uint32 [256], byte p (little-endian) of
+    word u being plane p's EN-T digit of the int8 whose bits are u."""
+    values = np.arange(256, dtype=np.uint8).view(np.int8)
+    digits = np.ascontiguousarray(enc.ent_digits_np(values), dtype=np.int8)
+    return digits.view("<u4").reshape(256)
 
 
 def _check(fn: str, x, block_m: int, block_k: int):
@@ -57,10 +70,23 @@ def _lib():
     lib = _build.load("encode")
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ent_encode.argtypes = [p] * 3 + [i] * 4 + [p]
+        lib.ent_encode.argtypes = [p] * 4 + [i] * 4 + [p]
         lib.ent_encode.restype = i
         lib._argtypes_set = True
     return lib
+
+
+# device index -> ent_table() on that device
+_TABLES: dict = {}
+
+
+def _table_on(device) -> torch.Tensor:
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _TABLES:
+        _TABLES[idx] = torch.from_numpy(ent_table().view(np.int32)).to(
+            torch.device("cuda", idx))
+    return _TABLES[idx]
 
 
 def ent_encode(x, *, block_m: int = 128, block_k: int = 128):
@@ -83,9 +109,10 @@ def ent_encode(x, *, block_m: int = 128, block_k: int = 128):
                        device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().ent_encode(x.data_ptr(), digits.data_ptr(),
-                                mask.data_ptr(), m, k, block_m, block_k,
-                                stream)
+        table = _table_on(x.device)
+        err = _lib().ent_encode(x.data_ptr(), table.data_ptr(),
+                                digits.data_ptr(), mask.data_ptr(), m, k,
+                                block_m, block_k, stream)
     if err != 0:
         raise RuntimeError(f"{fn}: kernel launch failed with CUDA error "
                            f"{err}")

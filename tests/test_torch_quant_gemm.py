@@ -351,7 +351,8 @@ def _byte_perm(x, y, s):
 
 
 def _transpose4(r0, r1, r2, r3):
-    """csrc/quant_gemm.cu transpose4, selector for selector."""
+    """transpose4 (csrc/epilogue.cuh, which csrc/quant_gemm.cu and
+    csrc/encode.cu include), selector for selector."""
     lo01, hi01 = _byte_perm(r0, r1, 0x5140), _byte_perm(r0, r1, 0x7362)
     lo23, hi23 = _byte_perm(r2, r3, 0x5140), _byte_perm(r2, r3, 0x7362)
     return [_byte_perm(lo01, lo23, 0x5410), _byte_perm(lo01, lo23, 0x7632),
@@ -359,7 +360,8 @@ def _transpose4(r0, r1, r2, r3):
 
 
 def test_transpose4_turns_rows_into_k_quads():
-    src = CSRC.read_text()
+    assert '#include "epilogue.cuh"' in CSRC.read_text()
+    src = (CSRC.parent / "epilogue.cuh").read_text()
     for sel in ("0x5140", "0x7362", "0x5410", "0x7632"):
         assert sel in src
     rng = np.random.default_rng(0)
