@@ -108,6 +108,22 @@ Phases (any failure exits non-zero and prints no result line):
    silu pass B8 and B1 280 times each, every other kernel 0.  Logs the
    host seconds to plan the 280 weights with each encoder.
 
+6. The serving stack on the same params (``server_phase``), after
+   ``ops.plan_cache_clear()`` and the earlier phases' engines are freed:
+   8 seeded prompts of 8-24 tokens, 16 new tokens, Poisson arrivals
+   (``serving.loadgen``).  (a) ``AsyncServer`` in virtual mode on the
+   default ladder's two tiers (fast planes=2, quality planes=4, both
+   pallas_fused and per-token, routed round robin): every request
+   completes, B1 is launched 7 * layers * the workers' steps and every
+   other kernel never.  (b) The same load in realtime mode (one thread a
+   tier): the same tiers and tokens; tok/s, TTFT/TPOT p50/p99 and peak GB
+   are logged.  Every request's tokens must equal a standalone
+   ``ServeEngine.run`` of its tier's spec.  (c) Twin planes=3 tiers in
+   restore mode: ``a`` is killed at the first pump (found by a virtual
+   run of the same load) after which one of its slots is past its
+   prompt; every request completes with the uninterrupted tokens, with
+   at least one slot restored and none re-prefilled.
+
 The kernels line gives, per kernel, one layer's seven launches at N=4
 (four 2304x2304, two 5760x2304 and one 2304x5888 products; B7: one
 encode of each plan shape; B8/B9 at T=4 in phase 5's orientations):
@@ -1437,6 +1453,12 @@ def kernel_api_pass(params, dev, log) -> dict:
             "silu_bit_identical": silu_equal}
 
 
+def device_us(evt) -> float:
+    """A profiler event's own device time, us."""
+    return (getattr(evt, "self_device_time_total", None)
+            or getattr(evt, "self_cuda_time_total", 0) or 0)
+
+
 def profile_steps(eng, dev, steps: int = 3) -> dict:
     """torch.profiler over ``steps`` decode steps of a served engine: the
     device time per step (kernel events only; the CPU ops that launched
@@ -1451,10 +1473,6 @@ def profile_steps(eng, dev, steps: int = 3) -> dict:
             torch.as_tensor(eng.slots.pos, device=dev), eng.state, eng.cfg)
         torch.argmax(logits[:, -1, :], dim=-1).cpu()
 
-    def dev_us(evt):
-        return (getattr(evt, "self_device_time_total", None)
-                or getattr(evt, "self_cuda_time_total", 0) or 0)
-
     with torch.no_grad():
         one_step()
         torch.cuda.synchronize()
@@ -1464,12 +1482,12 @@ def profile_steps(eng, dev, steps: int = 3) -> dict:
                 one_step()
     kernels = [e for e in prof.key_averages()
                if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    total_us = sum(dev_us(e) for e in kernels)
-    kern_us = {k: sum(dev_us(e) for e in kernels if k in e.key)
+    total_us = sum(device_us(e) for e in kernels)
+    kern_us = {k: sum(device_us(e) for e in kernels if k in e.key)
                for k in set(SYMBOLS.values())}
     kern_calls = {k: sum(e.count for e in kernels if k in e.key)
                   for k in set(SYMBOLS.values())}
-    top = sorted(kernels, key=dev_us, reverse=True)[:12]
+    top = sorted(kernels, key=device_us, reverse=True)[:12]
     return {"steps": steps,
             "device_ms_per_step": total_us / 1e3 / steps,
             "kernel_launches_per_step": sum(e.count for e in kernels) / steps,
@@ -1477,7 +1495,7 @@ def profile_steps(eng, dev, steps: int = 3) -> dict:
                                    for k, v in kern_us.items()},
             "kernel_ops_per_step": {k: v / steps
                                     for k, v in kern_calls.items()},
-            "top_kernels": [(e.key[:90], dev_us(e) / 1e3 / steps,
+            "top_kernels": [(e.key[:90], device_us(e) / 1e3 / steps,
                              e.count / steps) for e in top]}
 
 
@@ -1529,7 +1547,7 @@ def serve(cfg, params, spec_text, prompts, dev):
     if spec_text.endswith(("pallas_sparse", "pallas_pipelined")):
         stats["unfused"] = unfused_routes(eng, dev)
     del eng, logits
-    torch.cuda.empty_cache()
+    free_device_memory()
     return tokens, stats
 
 
@@ -1574,6 +1592,209 @@ def unfused_routes(eng, dev) -> dict:
         if not torch.equal(got, want):
             raise AssertionError(f"unfused {route} route != dense route")
     return {"route": route, "weights": len(records), "launches": launches}
+
+
+def server_requests(cfg, n: int = 8, prompt_len=(8, 24),
+                    max_tokens: int = 16):
+    """Phase 6's traffic: 8 seeded prompts of 8-24 tokens, 16 new tokens
+    each, Poisson arrivals (loadgen's, 8 requests a second, seed 0)."""
+    from repro_torch.serving import loadgen
+    return loadgen.synthesize(cfg.vocab_size, n, prompt_len=prompt_len,
+                              max_tokens=(max_tokens, max_tokens),
+                              pattern="poisson", rate=8.0, seed=0)
+
+
+def pctl(values, q) -> float:
+    import numpy as np
+    return float(np.percentile(np.asarray(list(values), np.float64), q))
+
+
+def free_device_memory() -> None:
+    import gc
+    import torch
+    from repro_torch.kernels import ops
+    ops.plan_cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def server_phase(cfg, params, dev, log, kind) -> dict:
+    """Phase 6: the serving stack on the full-width model, every worker
+    on the one float tree ``params``.
+
+    (a) Virtual mode, the default ladder's two tiers (fast planes=2,
+    quality planes=4, both pallas_fused, per-token), routed round robin
+    so both serve: every request completes, and B1 is launched 7 * layers
+    * the workers' steps, every other kernel never.  (b) Realtime mode,
+    the same traffic on the same server (each engine warmed before the
+    clock starts; the watchdog's miss limit is 50 EWMA steps): the same
+    tiers and tokens, and tok/s, TTFT/TPOT p50/p99 and peak GB on the
+    host clock.  Every request's tokens equal a standalone
+    ``ServeEngine.run`` of its tier's spec.  (c) Failover: twin planes=3
+    tiers a and b, restore mode; a virtual run of the traffic picks the
+    first pump of ``a`` after which one of its slots is past its prompt,
+    ``a`` is killed there (asserted at the kill), and every request
+    completes with the uninterrupted tokens, restored >= 1 and
+    reprefilled 0."""
+    import torch
+    from repro_torch.engine import QuantSpec
+    from repro_torch.serving import (AsyncServer, ServeEngine,
+                                     ServeRequest, Tier, default_tiers,
+                                     validate_summary)
+
+    out = {}
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    server = AsyncServer(cfg, tiers=default_tiers(2, batch=4), max_len=64,
+                         router="round_robin", watchdog_miss_limit=50,
+                         params=params, device=dev)
+    torch.cuda.synchronize()
+    out["setup_s"] = time.perf_counter() - t0
+    runs = {}
+    for mode in ("virtual", "realtime"):
+        reqs = server_requests(cfg)
+        torch.cuda.synchronize()
+        zero_counts()
+        stats = validate_summary(server.run(reqs,
+                                            realtime=mode == "realtime"))
+        launches = read_counts()
+        if stats["completed"] != 8 or any(len(r.out) != 16 for r in reqs):
+            raise AssertionError(f"server {mode}: {stats['completed']} of 8"
+                                 f" requests completed with 16 tokens")
+        if stats["failover"]["worker_deaths"]:
+            raise AssertionError(f"server {mode}: a worker died: "
+                                 f"{stats['failover']}")
+        runs[mode] = (reqs, stats, launches)
+    reqs, stats, launches = runs["virtual"]
+    want = 7 * cfg.n_layers * stats["engine_steps"]
+    expect = {name: want if name == "bw_gemm_fused" else 0
+              for name in KERNELS}
+    if launches != expect:
+        raise AssertionError(f"server virtual: launches {launches}, "
+                             f"expected {expect}")
+    if set(stats["tier_requests"]) != {"fast", "quality"}:
+        raise AssertionError(f"server: tiers served {stats['tier_requests']}")
+    v_tiers = [(r.rid, r.tier) for r in reqs]
+    r_reqs, r_stats, _ = runs["realtime"]
+    if [(r.rid, r.tier) for r in r_reqs] != v_tiers:
+        raise AssertionError("server: realtime routed otherwise than virtual")
+    peak_server = torch.cuda.max_memory_allocated() / 1e9
+    # the device's busy share while serving in realtime: a short load (a
+    # request a tier) under torch.profiler gives the kernels' device time
+    # a worker step, set against run (b)'s served window (its sim_s, the
+    # clock TTFT/TPOT and tok/s read; a step's device work is the same at
+    # any occupancy: the batch is 4).  Run (b) warmed the engines and a
+    # warm runs once an engine, so the profiled run holds no warm step.
+    from torch.profiler import ProfilerActivity, profile
+    if not all(w.engine.warmed for w in server.workers.values()):
+        raise AssertionError("server: an engine was not warmed by run (b)")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        p_stats = server.run(server_requests(cfg, 2, (8, 8), 4),
+                             realtime=True)
+    dev_ms = sum(device_us(e) for e in prof.key_averages()
+                 if str(getattr(e, "device_type", "")).endswith("CUDA")) / 1e3
+    dev_ms_step = dev_ms / p_stats["engine_steps"]
+    busy = dev_ms_step * r_stats["engine_steps"] / (1e3 * r_stats["sim_s"])
+    out.update(virtual=stats, virtual_launches=launches,
+               realtime=r_stats, server_peak_gb=peak_server)
+    tier_specs = {t.name: t.spec for t in server.tiers}
+    del server
+    free_device_memory()
+    for name, spec in tier_specs.items():
+        mine = [r for r in reqs if r.tier == name]
+        clones = [ServeRequest(r.rid, list(r.prompt), r.max_tokens)
+                  for r in mine]
+        eng = ServeEngine(cfg, 4, 64, quant=spec, params=params,
+                          device=dev)
+        eng.run(clones)
+        del eng
+        free_device_memory()
+        alone = {c.rid: c.out for c in clones}
+        for mode, (rs, _, _) in runs.items():
+            got = {r.rid: r.out for r in rs if r.tier == name}
+            if got != alone:
+                raise AssertionError(f"server {mode}: tier {name} tokens "
+                                     f"differ from a standalone engine")
+    out["realtime_metrics"] = {
+        "tok_per_s": r_stats["tok_per_s"], "wall_s": r_stats["wall_s"],
+        "sim_s": r_stats["sim_s"],
+        "ttft_p50_s": pctl((r.ttft for r in r_reqs), 50),
+        "ttft_p99_s": pctl((r.ttft for r in r_reqs), 99),
+        "tpot_p50_s": pctl((r.tpot for r in r_reqs), 50),
+        "tpot_p99_s": pctl((r.tpot for r in r_reqs), 99),
+        "engine_steps": r_stats["engine_steps"],
+        "per_step_s": r_stats["per_step_s"], "peak_gb": peak_server,
+        "device_ms_per_worker_step": dev_ms_step,
+        "device_busy_share": busy}
+    log(f"[server] virtual --tiers 2 (fast planes=2, quality planes=4): "
+        f"{stats['completed']} requests, {stats['generated_tokens']} tokens"
+        f", {stats['engine_steps']} worker steps, tiers "
+        f"{stats['tier_requests']}, launches {json.dumps(launches)}; "
+        f"modelled sim_s {stats['sim_s']} (cost model, not the card)")
+    log(f"[server] realtime --tiers 2: {json.dumps(out['realtime_metrics'])}"
+        f"; set-up {out['setup_s']:.1f} s  ({kind})")
+    log("[server] virtual and realtime: every request's tokens equal a "
+        "standalone ServeEngine.run of its tier's spec")
+
+    # (c) failover between twin planes=3 tiers
+    spec3 = QuantSpec.parse("planes=3,encoding=ent,impl=pallas_fused,"
+                            "act_quant=per_token")
+    twins = (Tier("a", spec3, 4), Tier("b", spec3, 4))
+    server = AsyncServer(cfg, tiers=twins, max_len=64, router="round_robin",
+                         failover="restore", params=params, device=dev)
+    worker = server.workers["a"]
+    ready_after = []
+    pump = worker.pump
+
+    def watched_pump(now, t_end=None):
+        fin = pump(now, t_end)
+        slots = worker.engine.slots
+        ready_after.append(any(r.out and slots.decode_ready(s)
+                               for s, r in slots.bound()))
+        return fin
+    worker.pump = watched_pump
+    healthy = server_requests(cfg)
+    server.run(healthy)
+    worker.pump = pump
+    expect_out = {r.rid: r.out for r in healthy}
+    kill_at = next((i + 1 for i, ok in enumerate(ready_after) if ok), None)
+    if kill_at is None:
+        raise AssertionError("failover: no pump of a leaves a slot past "
+                             "its prompt")
+    drain = worker.drain
+    at_kill = []
+
+    def checked_drain(snapshots=False):
+        slots = worker.engine.slots
+        at_kill.append([(r.rid, len(r.out)) for s, r in slots.bound()
+                        if r.out and slots.decode_ready(s)])
+        if not at_kill[-1]:
+            raise AssertionError("failover: no slot of a is past its "
+                                 "prompt at the kill")
+        return drain(snapshots)
+    worker.drain = checked_drain
+    server.chaos = f"kill:a@s{kill_at}"
+    reqs = server_requests(cfg)
+    stats = validate_summary(server.run(reqs))
+    fo = stats["failover"]
+    if stats["completed"] != 8 or fo["lost"] or fo["worker_deaths"] != 1:
+        raise AssertionError(f"failover: {stats['completed']} completed, "
+                             f"{fo}")
+    if fo["restored"] < 1 or fo["reprefilled"] != 0:
+        raise AssertionError(f"failover: restored {fo['restored']}, "
+                             f"reprefilled {fo['reprefilled']}")
+    if {r.rid: r.out for r in reqs} != expect_out:
+        raise AssertionError("failover: tokens differ from the "
+                             "uninterrupted run")
+    out["failover"] = dict(fo, kill_at=kill_at, at_kill=at_kill[0])
+    log(f"[server] failover: twin planes=3 tiers, a killed before its pump "
+        f"{kill_at} with {at_kill[0]} (rid, tokens) past the prompt; every "
+        f"request completes with the uninterrupted tokens; "
+        f"{json.dumps(fo)}")
+    del server, worker
+    free_device_memory()
+    return out
 
 
 def main(argv=None) -> int:
@@ -1724,6 +1945,13 @@ def main(argv=None) -> int:
         f"{api['plan_s']['ref']:.3f} (both sort rows by the oracle's "
         f"digits: the kernel replaces one of two encodes a weight); "
         f"launches {json.dumps(api['launches'])}  ({kind})")
+
+    # -- 6. the serving stack: tiers, the async server, failover -----------
+    t0 = time.perf_counter()
+    srv = server_phase(cfg, params, dev, log, kind)
+    log(f"[server] phase 6 in {time.perf_counter() - t0:.1f} s; B1 "
+        f"launches in the virtual run {srv['virtual_launches']['bw_gemm_fused']}"
+        f"; peak {srv['server_peak_gb']:.2f} GB  ({kind})")
 
     # -- the kernels line ----------------------------------------------------
     replaces = {"bw_gemm_fused": "src/repro/kernels/bw_gemm.py:215",

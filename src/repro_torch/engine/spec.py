@@ -14,11 +14,12 @@ packages:
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 from repro_torch.core import encodings as enc
 
-__all__ = ["QuantSpec", "IMPLS", "ACT_QUANT_POLICIES"]
+__all__ = ["QuantSpec", "IMPLS", "ACT_QUANT_POLICIES", "normalize_impl",
+           "spec_from_flags"]
 
 # Engine names a spec may carry, the reference's; each is registered in
 # repro_torch.engine.registry.
@@ -95,6 +96,10 @@ class QuantSpec:
     def enabled(self) -> bool:
         return self.planes > 0
 
+    def block_overrides(self) -> Tuple[Optional[int], Optional[int],
+                                       Optional[int]]:
+        return self.block_m, self.block_k, self.block_n
+
     def plan_key(self) -> tuple:
         """The spec fields a weight plan depends on: impl, block_n and
         act_quant do not change the planned operand, so 'pallas' and
@@ -117,8 +122,7 @@ class QuantSpec:
             raise TypeError(f"cannot coerce {value!r} to QuantSpec")
         if value == 0:
             return None
-        impl = impl or "planes"
-        return cls(planes=value, impl=_LEGACY_IMPL_ALIASES.get(impl, impl))
+        return cls(planes=value, impl=normalize_impl(impl or "planes"))
 
     @classmethod
     def parse(cls, text: str, **defaults) -> Optional["QuantSpec"]:
@@ -149,6 +153,9 @@ class QuantSpec:
                 kw[k] = v
         return cls(**kw)
 
+    def replace(self, **kw) -> "QuantSpec":
+        return dataclasses.replace(self, **kw)
+
     def __str__(self) -> str:
         parts = [f"planes={self.planes}", f"encoding={self.encoding}",
                  f"bits={self.bits}", f"impl={self.impl}"]
@@ -159,3 +166,32 @@ class QuantSpec:
         if self.act_quant != "per_tensor":
             parts.append(f"act_quant={self.act_quant}")
         return ",".join(parts)
+
+
+def normalize_impl(name: str) -> str:
+    """Map legacy global-switch impl names onto registry engine names."""
+    return _LEGACY_IMPL_ALIASES.get(name, name)
+
+
+def spec_from_flags(quant_spec: Optional[str] = None, quant_planes: int = 0,
+                    quant_impl: str = "pallas_fused",
+                    quant_encoding: str = "ent",
+                    quant_bits: int = 8) -> Optional[QuantSpec]:
+    """Build a spec from the launchers' shared CLI surface.
+
+    ``--quant-spec`` (a ``k=v,...`` string) wins; the individual flags
+    are defaults for fields it does not name.  Returns None when
+    quantization is not requested.  ``--quant-impl`` values go through the
+    legacy alias map ("pallas" means the fused kernel path); an ``impl=``
+    inside ``--quant-spec`` is taken literally ("pallas" = the unfused
+    engine).
+    """
+    quant_impl = normalize_impl(quant_impl)
+    if quant_spec:
+        return QuantSpec.parse(quant_spec, planes=quant_planes or 4,
+                               impl=quant_impl, encoding=quant_encoding,
+                               bits=quant_bits)
+    if quant_planes:
+        return QuantSpec(planes=quant_planes, impl=quant_impl,
+                         encoding=quant_encoding, bits=quant_bits)
+    return None

@@ -23,24 +23,46 @@ schedule order); ``auto`` picks by the schedule's density.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import weakref
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import chaos as _chaos
 from repro_torch.core import encodings as enc
 from repro_torch.core import quant as quantlib
 from repro_torch.engine.spec import QuantSpec
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from . import bw_gemm as _bw
 from . import encode as _enc_kernel
 from . import quant_gemm as _qg
 from . import ref as kref
 
+# The reference's metric families, bound at import.  The plan-time ones
+# observe host values while a weight is planned; the per-call dispatch
+# counter and span sit behind obs_trace.enabled(), one branch when off,
+# and read no device value either way.
+_M_PLAN_HITS = obs_metrics.get_registry().counter(
+    "repro_plan_cache_hits_total")
+_M_PLAN_MISSES = obs_metrics.get_registry().counter(
+    "repro_plan_cache_misses_total")
+_M_SCHED_DENSITY = obs_metrics.get_registry().histogram(
+    "repro_schedule_density", obs_metrics.GLOSSARY[
+        "repro_schedule_density"]["edges"])
+_M_B_ELIDED = obs_metrics.get_registry().counter(
+    "repro_schedule_b_dma_elided_total")
+_M_DISPATCH = obs_metrics.get_registry().counter(
+    "repro_gemm_dispatch_total")
+
 __all__ = ["PlannedOperand", "encode_planes", "plane_block_mask",
            "plane_density", "plan_operand", "bw_gemm", "bw_gemm_fused",
            "quant_gemm", "quant_gemm_fused", "select_block_sizes",
            "plan_dense_weight", "plan_params", "plan_tree_density",
+           "plan_for", "plan_cache_stats", "plan_cache_clear",
            "planned_dense_apply", "quantized_dense", "build_schedule",
            "pad_schedule", "schedule_stats", "bw_gemm_sparse",
            "bw_gemm_sparse_fused", "bw_gemm_sparse_pipelined",
@@ -181,6 +203,12 @@ def build_schedule(mask, radix: int, order: str = "m_major") -> np.ndarray:
     if isinstance(mask, torch.Tensor):
         mask = mask.cpu().numpy()
     mask = np.asarray(mask)
+    with obs_trace.span("plan.build_schedule", order=order,
+                        blocks=int(mask.size)):
+        return _build_schedule(mask, radix, order)
+
+
+def _build_schedule(mask: np.ndarray, radix: int, order: str) -> np.ndarray:
     bw_n, mb, kb = mask.shape
     entries = []
     if order == "m_major":
@@ -201,7 +229,12 @@ def build_schedule(mask, radix: int, order: str = "m_major") -> np.ndarray:
             o = np.lexsort((cells[:, 0], cells[:, 1]))  # by (row, plane)
             entries.extend((int(p), int(row), kk, radix ** int(p))
                            for p, row in cells[o])
-    return _annotate_schedule(entries)
+    sched = _annotate_schedule(entries)
+    if mask.size:                                  # metrics: built plans
+        real = int((sched[:, _bw._WEIGHT] != 0).sum())
+        _M_SCHED_DENSITY.observe(real / mask.size)
+        _M_B_ELIDED.inc(real - int(sched[:, _bw._BFETCH].sum()))
+    return sched
 
 
 def pad_schedule(schedule: np.ndarray, length: int) -> np.ndarray:
@@ -331,20 +364,124 @@ def _channel_rows(vec: torch.Tensor, n: int, m_pad: int,
 
 
 
-def plan_dense_weight(w: torch.Tensor, spec, order: str = "m_major") -> dict:
+# ---------------------------------------------------------------------------
+# Weight-planning cache: plan once per parameter, reuse every call
+# ---------------------------------------------------------------------------
+# A tensor is keyed by identity and its version counter (torch tensors are
+# mutable: an in-place update bumps ``_version``, so a stale plan is never
+# returned), and a weakref evicts the entry when the tensor dies so a
+# recycled id() cannot alias it.  numpy inputs are keyed by content.
+
+class _PlanCache:
+    MAX_ENTRIES = 256     # FIFO cap: content-keyed (numpy) entries have no
+                          # weakref eviction and would otherwise grow forever
+
+    def __init__(self):
+        self._entries = {}
+        self.hits = 0
+        self.misses = 0
+
+    def _key(self, w, params):
+        if isinstance(w, np.ndarray):
+            digest = hashlib.blake2b(np.ascontiguousarray(w).tobytes(),
+                                     digest_size=16).hexdigest()
+            return ("hash", w.shape, str(w.dtype), digest) + params, None
+        return ("id", id(w), getattr(w, "_version", None)) + params, w
+
+    def lookup(self, w, params, build):
+        key, anchor = self._key(w, params)
+        hit = self._entries.get(key)
+        if hit is not None:
+            self.hits += 1
+            _M_PLAN_HITS.inc()
+            return hit[0]
+        self.misses += 1
+        _M_PLAN_MISSES.inc()
+        value = build()
+        finalizer = None
+        if anchor is not None:
+            try:
+                finalizer = weakref.ref(
+                    anchor, lambda _ref, k=key: self._entries.pop(k, None))
+            except TypeError:
+                # id-keyed but not weakref-able: a recycled id() could
+                # alias a stale plan, so do not cache
+                return value
+        while len(self._entries) >= self.MAX_ENTRIES:
+            self._entries.pop(next(iter(self._entries)))
+        self._entries[key] = (value, finalizer)
+        return value
+
+    def clear(self):
+        self._entries.clear()
+        self.hits = self.misses = 0
+
+    def stats(self):
+        return {"entries": len(self._entries), "hits": self.hits,
+                "misses": self.misses}
+
+
+_PLAN_CACHE = _PlanCache()
+
+
+def plan_cache_stats() -> dict:
+    return _PLAN_CACHE.stats()
+
+
+def plan_cache_clear() -> None:
+    """Drop every cached plan (and the device memory it holds)."""
+    _PLAN_CACHE.clear()
+
+
+def _plan(w, spec: QuantSpec, order: str):
+    k, n = w.shape
+    block_m, block_k, _ = select_block_sizes(n, k, 128, spec)
+    wt = torch.as_tensor(w)
+    qw, sw = quantlib.quantize_for_spec(wt.to(torch.float32), spec, axis=0)
+    planned = plan_operand(qw.t(), encoding=spec.encoding, block_m=block_m,
+                           block_k=block_k, bits=spec.bits, order=order)
+    return planned, sw.to(torch.float32)
+
+
+def plan_for(w, spec, order: str = "m_major"):
+    """Quantize + plan a dense weight for the kernel path, with caching.
+
+    w: float [K, N] (d_in, d_out), a tensor or numpy.  Returns
+    (PlannedOperand of W^T -- output channels as kernel rows -- and the
+    per-channel weight scale sw [1, N]).  Entries key on (weight,
+    spec.plan_key(), blocks, shape, order), so one weight planned under
+    two specs or two orders holds two entries.
+    """
+    spec = QuantSpec.coerce(spec)
+    k, n = w.shape
+    block_m, block_k, _ = select_block_sizes(n, k, 128, spec)
+    params = spec.plan_key() + (int(block_m), int(block_k), k, n, order,
+                                None)
+
+    def build():
+        with obs_trace.span("plan.plan_for", k=k, n=n, order=order,
+                            planes=spec.planes, shards="1x1"):
+            return _plan(w, spec, order)
+
+    return _PLAN_CACHE.lookup(w, params, build)
+
+
+def plan_dense_weight(w, spec, use_cache: bool = True,
+                      order: str = "m_major") -> dict:
     """Quantize + plan a dense weight w [K, N] (d_in, d_out) into a record.
 
     The record holds the digit planes of W^T (output channels as kernel
     rows), the occupancy mask, the annotated block schedule in ``order``,
     the channel permutations and the permuted weight scales: the
-    reference's record, on the weight's device.
+    reference's record, on the weight's device.  use_cache: go through
+    ``plan_for``'s cache (the reference's default).
     """
     spec = QuantSpec.coerce(spec)
-    k, n = w.shape
-    block_m, block_k, _ = select_block_sizes(n, k, 128, spec)
-    qw, sw = quantlib.quantize_for_spec(w.to(torch.float32), spec, axis=0)
-    planned = plan_operand(qw.t(), encoding=spec.encoding, block_m=block_m,
-                           block_k=block_k, bits=spec.bits, order=order)
+    if use_cache:
+        planned, sw = plan_for(w, spec, order=order)
+    else:
+        planned, sw = _plan(w, spec, order)
+    n = w.shape[1]
     m_pad = planned.digits.shape[1]
     return {
         "digits": planned.digits,                     # int8 [BW, M_pad, K_pad]
@@ -619,19 +756,39 @@ def planned_dense_apply(plan: dict, x: torch.Tensor, spec, n_out: int, *,
     'k_major' plans take only the dense or pipelined routes.
     """
     spec = QuantSpec.coerce(spec)
-    digits, mask = plan["digits"], plan["mask"]
-    bw_n, m_pad, k_pad = digits.shape
+    bw_n = plan["digits"].shape[0]
     if bw_n != spec.num_digits:
         raise ValueError(
             f"plan record has {bw_n} digit planes but spec "
             f"{spec.encoding!r}/{spec.bits}b implies {spec.num_digits}; "
             f"was the plan built under a different spec?")
+    k = x.shape[-1]
+    batch = x.numel() // max(k, 1)
+    route = _resolve_dispatch(dispatch, plan, spec, n_out, k, batch, order)
+    # chaos seam: one branch when no plan is armed
+    if _chaos.enabled():
+        _chaos.maybe_raise("kernel.dispatch", target=route)
+    if obs_trace.enabled():
+        _M_DISPATCH.labels(route=route).inc()
+        sp = obs_trace.span("ops.planned_dense_apply", cat="kernel",
+                            route=route, fused=bool(fused), order=order,
+                            m=int(n_out), k=int(k), n=int(batch))
+    else:
+        sp = obs_trace.NULL_SPAN
+    with sp:
+        return _apply_route(plan, x, spec, n_out, route, bias=bias,
+                            activation=activation, out_dtype=out_dtype,
+                            fused=fused)
+
+
+def _apply_route(plan, x, spec, n_out, route, *, bias, activation,
+                 out_dtype, fused):
+    digits, mask = plan["digits"], plan["mask"]
+    _, m_pad, k_pad = digits.shape
     block_m = m_pad // mask.shape[1]
     block_k = k_pad // mask.shape[2]
     k = x.shape[-1]
     lead = x.shape[:-1]
-    batch = x.numel() // max(k, 1)
-    route = _resolve_dispatch(dispatch, plan, spec, n_out, k, batch, order)
     per_token = spec.act_quant == "per_token"
     qx, sx = quantlib.quantize_for_spec(x.to(torch.float32), spec,
                                         axis=-1 if per_token else None)
@@ -684,8 +841,10 @@ def quantized_dense(x: torch.Tensor, w: torch.Tensor, spec, *, bias=None,
     """Kernel-path dense on a raw weight: plan it, then apply.
 
     x: [..., K] float; w: [K, N] float; bias: optional [N].  The weight is
-    planned (in ``order``) on every call; serving plans once through
-    plan_params.
+    planned (in ``order``) through ``plan_for``'s cache, so a weight that
+    is still alive and unchanged is planned once; the cache holds up to
+    ``_PlanCache.MAX_ENTRIES`` plans on the weights' device until
+    ``plan_cache_clear()``.  Serving plans once through plan_params.
     """
     spec = QuantSpec.coerce(spec)
     plan = plan_dense_weight(w, spec, order=order)
@@ -715,16 +874,21 @@ def plan_params(params, spec, order: Optional[str] = None):
     # groups: weight path without list indices -> records.  It is passed
     # down rather than closed over, so the recursive closure's reference
     # cycle holds no plan once plan_params returns.
-    def walk(node, path, groups):
+    # A weight under a list is one layer of what the reference stacks and
+    # plans uncached; any other weight goes through the plan cache, as a
+    # 2-D weight does there.
+    def walk(node, path, groups, layered=False):
         nonlocal count
         if isinstance(node, list):
-            return [walk(v, path, groups) for v in node]
+            return [walk(v, path, groups, True) for v in node]
         if not isinstance(node, dict):
             return node
-        out = {k: walk(v, path + (k,), groups) for k, v in node.items()}
+        out = {k: walk(v, path + (k,), groups, layered)
+               for k, v in node.items()}
         w = node.get("w")
         if isinstance(w, torch.Tensor) and w.dim() == 2:
-            out["w_plan"] = plan_dense_weight(w, spec, order=order)
+            out["w_plan"] = plan_dense_weight(w, spec, use_cache=not layered,
+                                              order=order)
             groups.setdefault(path, []).append(out["w_plan"])
             count += 1
         return out

@@ -1,21 +1,36 @@
 """Admission scheduling: a queue with pluggable ordering policies
 (``repro.serving.scheduler``).
 
-    fcfs      -- submission order
+The scheduler owns the ``QUEUED`` phase of the request lifecycle: it
+validates requests at submission (the prompt must fit the engine's KV
+window — the old engine silently overran the cache and truncated
+generation to a single token), holds them in arrival order, and releases
+them to free decode slots per an ``AdmissionPolicy``:
+
+    fcfs      -- submission order (the synchronous engine's behavior;
+                 bit-for-bit compatible with the legacy serve loop)
     priority  -- highest ``priority`` first, FCFS among equals
-    deadline  -- earliest deadline first; deadline-less requests queue
-                 behind any deadline, FCFS among themselves
+    deadline  -- earliest deadline first (EDF); deadline-less requests
+                 queue behind any deadline, FCFS among themselves
 
 Too-long prompts are handled per ``on_too_long``: ``"error"`` raises at
-submission, ``"reject"`` marks the request ``REJECTED``, ``"truncate"``
-clips the prompt head to fit and warns.
+submission (fail fast — the engine CLI default), ``"reject"`` marks the
+request ``REJECTED`` and keeps serving (the async server default),
+``"truncate"`` clips the prompt head to fit and warns.
 """
 from __future__ import annotations
 
 import warnings
 from typing import List, Optional
 
+from repro_torch.obs import metrics as obs_metrics
+
 from .request import QUEUED, REJECTED, ServeRequest
+
+_M_ADMITTED = obs_metrics.get_registry().counter(
+    "repro_serve_admitted_total")
+_M_REJECTED = obs_metrics.get_registry().counter(
+    "repro_serve_rejected_total")
 
 __all__ = ["AdmissionPolicy", "FcfsPolicy", "PriorityPolicy",
            "DeadlinePolicy", "POLICIES", "make_policy", "Scheduler"]
@@ -50,6 +65,8 @@ class DeadlinePolicy(AdmissionPolicy):
     name = "deadline"
 
     def select(self, queue, now):
+        # min() is stable on the first minimum -> FCFS among equals;
+        # requests without a deadline sort after any finite deadline
         return min(range(len(queue)),
                    key=lambda i: (queue[i].deadline is None,
                                   queue[i].deadline or 0.0))
@@ -88,6 +105,10 @@ class Scheduler:
     def queue_depth(self) -> int:
         return len(self._queue)
 
+    def queued_tokens(self) -> int:
+        """Tokens owed by queued requests (prompt + decode budget)."""
+        return sum(len(r.prompt) + r.max_tokens for r in self._queue)
+
     def submit(self, req: ServeRequest, now: float = 0.0) -> bool:
         """Validate and enqueue; returns False when the request was
         rejected (it is then in ``self.rejected`` with ``req.error`` set)."""
@@ -117,8 +138,10 @@ class Scheduler:
             req.error = error
             req.to(REJECTED, now)
             self.rejected.append(req)
+            _M_REJECTED.inc()
             return False
         self._queue.append(req)
+        _M_ADMITTED.inc()
         return True
 
     def pop(self, now: float = 0.0) -> Optional[ServeRequest]:
@@ -126,3 +149,12 @@ class Scheduler:
         if not self._queue:
             return None
         return self._queue.pop(self.policy.select(self._queue, now))
+
+    def peek_all(self) -> List[ServeRequest]:
+        return list(self._queue)
+
+    def drain(self) -> List[ServeRequest]:
+        """Remove and return every queued request (submission order) —
+        the worker-death path hands them back to the router."""
+        drained, self._queue = self._queue, []
+        return drained

@@ -188,6 +188,79 @@ def test_decode_step_logits_without_excess_precision(tmp_path):
     assert exact >= 5
 
 
+def test_planes3_gap_first_op_is_the_compiled_activation_scale(tmp_path,
+                                                               monkeypatch):
+    """ROADMAP queue C2, diagnosed.  With excess precision off the first
+    op that differs is the per-token activation scale: XLA rewrites the
+    reference's ``amax / qmax`` into ``amax * fl(1/qmax)`` when it
+    compiles the step (0.0238095243 for qmax 42), one ulp above the true
+    quotient for amax 3.5625, and x = 0.296875 then quantizes to 3 in the
+    compiled reference (x / s = 3.4999998) and to 4 in the port and the
+    reference's eager code (3.5000002).  With the port's activation scale
+    computed as the compiled reference computes it, the lock-step logits
+    are equal at every step."""
+    from repro.core import quant as jquant
+    from repro_torch.core import quant as tquant
+    spec_j = JSpec.parse(_spec_text("pallas_fused"))
+    spec_t = TSpec.parse(_spec_text("pallas_fused"))
+    x = np.zeros((1, 1, 64), np.float32)
+    x[0, 0, 0], x[0, 0, 11] = 3.5625, 0.296875
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+
+    def jq(v):
+        return jquant.quantize_for_spec(v.astype(jnp.float32), spec_j,
+                                        axis=-1)
+
+    # the compiled step multiplies by the rounded reciprocal of 42
+    assert "0.0238095243" in jax.jit(jq).lower(xb).compile().as_text()
+    q_jit, s_jit = jax.jit(jq)(xb)
+    q_eager, s_eager = jq(xb)
+    q_port, s_port = tquant.quantize_for_spec(torch.from_numpy(x), spec_t,
+                                              axis=-1)
+    amax = np.float32(3.5625)
+    assert float(s_jit[0, 0, 0]) == amax * np.float32(1 / 42)
+    assert float(s_eager[0, 0, 0]) == float(s_port[0, 0, 0]) == \
+        amax / np.float32(42)
+    assert int(q_jit[0, 0, 11]) == 3
+    assert int(q_eager[0, 0, 11]) == int(q_port[0, 0, 11]) == 4
+
+    spec = _spec_text("pallas_fused")
+    out = tmp_path / "ref.npy"
+    env = dict(os.environ, XLA_FLAGS="--xla_allow_excess_precision=false")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [env.get("PYTHONPATH")] if p])
+    res = subprocess.run(
+        [sys.executable, "-c", _REFERENCE_LOCKSTEP % spec, str(out)],
+        env=env, capture_output=True, text=True, timeout=900)
+    assert res.returncode == 0, res.stderr[-2000:]
+    want = np.load(out)
+    jcfg = jget_config("minicpm-2b", smoke=True)
+    teng = _port_engine(JEngine(jcfg, 2, 16, quant=JSpec.parse(spec)),
+                        "pallas_fused")
+
+    def compiled_scale(v, planes=4, axis=None, radix=4, bits=8):
+        qmax = tquant.plane_qmax(planes, radix, bits)
+        recip = torch.tensor(1.0 / qmax, dtype=torch.float32)
+        s = torch.clamp_min(v.abs().amax(dim=axis, keepdim=True), 1e-8)
+        s = s * recip
+        return torch.clamp(torch.round(v / s), -qmax, qmax).to(
+            torch.int8), s
+
+    # only the served step's activations: the weights were planned with
+    # the true quotient, as the reference plans them (eagerly)
+    monkeypatch.setattr(tquant, "quantize_to_planes", compiled_scale)
+    tokens = np.random.default_rng(1).integers(
+        0, jcfg.vocab_size, size=(8, 2)).astype(np.int32)
+    tstate = teng.state
+    for step in range(tokens.shape[0]):
+        tlogits, tstate = teng.api.decode_step(
+            teng.params, torch.from_numpy(tokens[step][:, None]),
+            torch.from_numpy(np.full((2,), step, np.int32)), tstate,
+            teng.cfg)
+        np.testing.assert_array_equal(
+            tlogits.to(torch.float32).numpy()[:, -1], want[step])
+
+
 def test_launcher_serves_on_cpu(capsys):
     from repro_torch.launch import serve
     rc = serve.main(["--smoke", "--device", "cpu", "--requests", "3",
@@ -214,16 +287,22 @@ def test_entry_points_raise_without_card():
 
 
 def test_port_imports_neither_jax_nor_reference():
-    """A fresh interpreter imports the port's kernels, serving and launch
-    modules without loading jax or repro; no port source (nor
-    chip_smoke.py) names them in an import."""
+    """A fresh interpreter imports the port's kernels, serving stack, obs,
+    chaos and launch modules without loading jax, repro or ml_dtypes; no
+    port source (nor chip_smoke.py) names them in an import."""
     code = (
         "import sys\n"
         "import repro_torch, repro_torch.convert\n"
         "import repro_torch.kernels.ops, repro_torch.kernels._build\n"
         "import repro_torch.serving.engine, repro_torch.launch.serve\n"
+        "import repro_torch.serving, repro_torch.serving.server\n"
+        "import repro_torch.serving.ckpt, repro_torch.serving.journal\n"
+        "import repro_torch.serving.tiers, repro_torch.serving.loadgen\n"
+        "import repro_torch.obs, repro_torch.obs.__main__\n"
+        "import repro_torch.chaos, repro_torch.train.fault\n"
+        "import repro_torch.core.hwmodel, repro_torch.engine._collectives\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'repro'))\n"
+        "('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env,
@@ -240,8 +319,8 @@ def test_port_imports_neither_jax_nor_reference():
             else:
                 continue
             for name in names:
-                assert name.split(".")[0] not in ("jax", "jaxlib",
-                                                  "repro"), (path, name)
+                assert name.split(".")[0] not in (
+                    "jax", "jaxlib", "repro", "ml_dtypes"), (path, name)
 
 
 def test_chip_smoke_fails_without_card(tmp_path):
