@@ -124,6 +124,34 @@ Phases (any failure exits non-zero and prints no result line):
    prompt; every request completes with the uninterrupted tokens, with
    at least one slot restored and none re-prefilled.
 
+7. The static analyzers and the measured autotuner on the same params
+   (``autotune_phase``).  (a) Every weight planned at planes=3 m_major
+   with ``verify=True`` (a plan with an error diagnostic raises) and
+   without, the host seconds of each logged; every verified schedule is
+   in the verification memo; the three projection shapes are also
+   planned k_major, and ``analysis.crosscheck_cost`` is clean for
+   pallas_fused and pallas_sparse on an m_major plan of each shape and for
+   pallas_pipelined on each k_major plan.  The host us a call of the
+   seams on the served path is logged: the 'auto' dispatch with its cache
+   probe, the threshold alone, a fixed route, the verification seam with
+   ``REPRO_VERIFY`` unset (``seam_host_cost``).  (b) For every candidate of the
+   sweep, the shared-memory pass's pipelined footprint equals the
+   library's layout at N=4 (``pipelined_layout_of_kernel``): it fits
+   exactly when the library lays it out, with equal bytes.  (c)
+   ``autotune_gemm`` at the three projection shapes (2304x2304,
+   5760x2304, 2304x5760), N=4, for planes 2, 3 and 4 (24 candidates each,
+   216 in all), timed on the card: every candidate's route, blocks and
+   device us and each winner logged, the winners saved to a temporary
+   cache file (removed when the phase ends); the checked-in cache
+   validates.  (d) planes=2 pallas_sparse (dispatch 'auto') serves 3 of
+   the prompts with ``REPRO_AUTOTUNE_CACHE`` naming that file: each
+   projection launches the kernel of the route the file names for its
+   (shape, density bucket), or the 0.5 threshold's where no entry
+   transfers to an m_major plan, and the tokens equal phase 4's planes=2
+   tokens; ``plan_stats["schedules_verified"]`` is logged.  (e) The same
+   with no env var: B3 on every projection, no cache hit, the same
+   tokens.
+
 The kernels line gives, per kernel, one layer's seven launches at N=4
 (four 2304x2304, two 5760x2304 and one 2304x5888 products; B7: one
 encode of each plan shape; B8/B9 at T=4 in phase 5's orientations):
@@ -200,7 +228,8 @@ def cuda_ms(fn, iters: int = 24, warmup: int = 3) -> float:
     call's host time, at <= 2 GHz), so its start event fires only when
     the card reaches it, and the pair times the device alone.  The median
     of the pairs leaves out a pair whose call the host issued late all
-    the same.
+    the same.  ``repro_torch.kernels.autotune._device_seconds`` is the
+    same method (in seconds); keep the two in step.
     """
     import torch
     host_s = 0.0
@@ -227,7 +256,8 @@ def cuda_ms(fn, iters: int = 24, warmup: int = 3) -> float:
 def cold_copies(t, total_bytes: float = 150e6):
     """Copies of ``t`` that together exceed the 50 MB L2 three times over,
     so a timing loop cycling through them reads device memory, as the
-    serving path (whose 40 layers hold distinct weights) does."""
+    serving path (whose 40 layers hold distinct weights) does.  The
+    autotuner's ``_cold_copies`` is the same; keep the two in step."""
     return [t.clone() for _ in range(max(2, -(-int(total_bytes)
                                               // t.nbytes)))]
 
@@ -1797,6 +1827,366 @@ def server_phase(cfg, params, dev, log, kind) -> dict:
     return out
 
 
+# Phase 7: the plane budgets of the default ladder's tiers (the sweep's)
+TUNED_PLANES = (2, 3, 4)
+# route planned_dense_apply resolves -> the fused kernel it launches
+ROUTE_KERNELS = {"dense": "bw_gemm_fused", "sparse": "bw_gemm_sparse_fused",
+                 "pipelined": "bw_gemm_sparse_fused_pipelined"}
+
+
+def model_weights(params) -> list:
+    """Every dense weight [d_in, d_out] of a param tree, in tree order."""
+    import torch
+
+    def walk(node, out):
+        if isinstance(node, list):
+            for v in node:
+                walk(v, out)
+        elif isinstance(node, dict):
+            w = node.get("w")
+            if isinstance(w, torch.Tensor) and w.dim() == 2:
+                out.append(w)
+            for v in node.values():
+                walk(v, out)
+        return out
+    return walk(params, [])
+
+
+def verified_planning(params, dev, log, kind) -> dict:
+    """Phase 7 (a): every weight planned at planes=3 m_major with and
+    without verification (host seconds each), the three shapes also
+    k_major; every verified schedule in the memo; the cost cross-check
+    clean on one plan of each shape and order."""
+    import torch
+    from repro_torch import analysis
+    from repro_torch.engine import QuantSpec
+    from repro_torch.kernels import ops
+
+    spec = QuantSpec.parse("planes=3,encoding=ent,act_quant=per_token,"
+                           "impl=pallas_fused")
+    weights = model_weights(params)
+    secs = {}
+    firsts = {}
+    for verify in (False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for w in weights:
+            rec = ops.plan_dense_weight(w, spec, use_cache=False,
+                                        verify=verify)
+            if verify and not ops._schedule_verified(rec["schedule"]):
+                raise AssertionError(f"{tuple(w.shape)}: a verified plan's "
+                                     f"schedule is not in the memo")
+            if verify:
+                firsts.setdefault(tuple(w.shape), (w, rec))
+        torch.cuda.synchronize()
+        secs[verify] = time.perf_counter() - t0
+    report = analysis.Report("phase 7 cost cross-check")
+    for (k, n_out), (w, rec) in firsts.items():
+        for impl in ("pallas_fused", "pallas_sparse"):
+            analysis.crosscheck_cost(impl, n_out, k, 4, spec, rec,
+                                     report=report)
+        krec = ops.plan_dense_weight(w, spec, use_cache=False,
+                                     order="k_major", verify=True)
+        if not ops._schedule_verified(krec["schedule"]):
+            raise AssertionError(f"{(k, n_out)} k_major: not verified")
+        analysis.crosscheck_cost("pallas_pipelined", n_out, k, 4, spec,
+                                 krec, report=report)
+    if report.diagnostics:
+        raise AssertionError(f"cost cross-check: {report}")
+    out = {"weights": len(weights), "shapes": sorted(firsts),
+           "plan_s": secs[False], "plan_verified_s": secs[True]}
+    log(f"[analysis] {len(weights)} weights planned at planes=3 m_major "
+        f"with verify=True: every schedule verified (zero error "
+        f"diagnostics: none raised) and in the memo; the {len(firsts)} "
+        f"shapes {sorted(firsts)} also k_major; crosscheck_cost clean for "
+        f"pallas_fused and pallas_sparse (m_major) and pallas_pipelined "
+        f"(k_major); host s to plan all {len(weights)}: "
+        f"{secs[False]:.3f} without verification, {secs[True]:.3f} with  "
+        f"({kind})")
+    return out
+
+
+def seam_host_cost(params, dev, log, kind, calls: int = 20_000) -> dict:
+    """Phase 7 (a'): host us a call of the seams this slice put on the
+    served path, on a planes=2 plan of the first 2304x2304 weight on the
+    card, the checked-in cache (every card lookup misses): the 'auto'
+    dispatch (cache probe, then the threshold), the threshold alone (the
+    resolution 'auto' had before the cache), a fixed route, and the
+    pre-kernel verification seam with REPRO_VERIFY unset.  Best of three
+    loops of ``calls``."""
+    import os
+    from repro_torch.engine import QuantSpec
+    from repro_torch.kernels import autotune, ops
+
+    if os.environ.get(autotune.ENV_VAR) or ops.verification_enabled():
+        raise AssertionError("seam cost: REPRO_AUTOTUNE_CACHE or "
+                             "REPRO_VERIFY is set")
+    autotune.reset_cache()
+    spec = QuantSpec.parse("planes=2,encoding=ent,act_quant=per_token,"
+                           "impl=pallas_sparse")
+    w = model_weights(params)[0]
+    k, n_out = w.shape
+    rec = ops.plan_dense_weight(w, spec, use_cache=False, verify=False)
+
+    def threshold():
+        density = rec["schedule"].shape[0] / max(rec["mask"].numel(), 1)
+        return "sparse" if density <= ops.SPARSE_DENSITY_THRESHOLD \
+            else "dense"
+
+    seams = {
+        "auto": lambda: ops._resolve_dispatch("auto", rec, spec, n_out, k,
+                                              4, "m_major"),
+        "threshold_only": threshold,
+        "fixed_route": lambda: ops._resolve_dispatch(
+            "sparse", rec, spec, n_out, k, 4, "m_major"),
+        "verify_seam": lambda: ops._maybe_verify_plan(rec, spec, "m_major",
+                                                      None)}
+    density = rec["schedule"].shape[0] / max(rec["mask"].numel(), 1)
+    if autotune.get_cache().lookup(n_out, k, 4, spec, density=density,
+                                   device=rec["schedule"].device) is None \
+            and seams["auto"]() != threshold():
+        raise AssertionError("seam cost: 'auto' left the threshold's route "
+                             "on a miss")
+    us = {}
+    for name, fn in seams.items():
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            best = min(best, time.perf_counter() - t0)
+        us[name] = 1e6 * best / calls
+    added = us["auto"] - us["threshold_only"] + us["verify_seam"]
+    out = {"us_per_call": us, "added_us_per_call": added,
+           "added_ms_per_step": 7 * 40 * added / 1e3, "shape": [k, n_out]}
+    log(f"[analysis] host us a call, {calls} calls best of 3, {k}x{n_out} "
+        f"planes=2 plan: {json.dumps(us)}; added on the served 'auto' "
+        f"route (auto - threshold_only + verify_seam) {added:.3f} us a "
+        f"call, {out['added_ms_per_step']:.4f} ms a step of 280 calls  "
+        f"({kind})")
+    autotune.reset_cache()
+    return out
+
+
+def tuned_shapes(cfg) -> tuple:
+    """(M, K) of the model's three projection shapes: attention, up/gate,
+    down (kernel rows M = output channels)."""
+    return ((cfg.d_model, cfg.d_model), (cfg.d_ff, cfg.d_model),
+            (cfg.d_model, cfg.d_ff))
+
+
+def footprint_agreement(cfg, log) -> int:
+    """Phase 7 (b): for every candidate block shape of the sweep, the
+    shared-memory pass's pipelined footprint equals the library's layout
+    at N=4 (fits exactly when the library lays it out, with equal smem)."""
+    from repro_torch import analysis
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import bw_gemm as bwk
+
+    checked = 0
+    for m, k in tuned_shapes(cfg):
+        for c in autotune.candidate_configs(m, k, 4):
+            parts = analysis.vmem_footprint(
+                "pipelined", m, k, 4, block_m=c["block_m"],
+                block_k=c["block_k"], block_n=c["block_n"], n_planes=4)
+            lay = bwk.pipelined_layout_of_kernel(4, c["block_m"],
+                                                 c["block_k"])
+            fits = "refused" not in parts and \
+                parts["total"] <= analysis.vmem_budget()
+            if fits != (lay is not None) or \
+                    (lay is not None and parts["total"] != lay["smem"]):
+                raise AssertionError(f"{m}x{k} {c}: footprint {parts} != "
+                                     f"the library's layout {lay}")
+            checked += 1
+    log(f"[autotune] shared-memory pass == csrc layout on {checked} "
+        f"candidates (N=4)")
+    return checked
+
+
+def tuned_sweep(cfg, dev, log, kind, path) -> dict:
+    """Phase 7 (c): autotune_gemm at the three projection shapes, N=4, for
+    each plane budget of TUNED_PLANES, timed on the card; every candidate
+    and winner logged; the winners saved to the cache file ``path``."""
+    from repro_torch.engine import QuantSpec
+    from repro_torch.kernels import autotune
+
+    cache = autotune.AutotuneCache(str(path))
+    timed = []
+    winners = {}
+    t0 = time.perf_counter()
+    for m, k in tuned_shapes(cfg):
+        for planes in TUNED_PLANES:
+            rows = []
+            win = autotune.autotune_gemm(
+                m, k, 4, QuantSpec(planes=planes), cache=cache, iters=24,
+                device=dev,
+                on_measure=lambda c, sec: rows.append((c, sec)))
+            timed.extend(rows)
+            winners[f"{m}x{k} planes={planes}"] = win
+            cands = "; ".join(
+                f"{c['dispatch']}/{c['order']} {c['block_m']}x"
+                f"{c['block_k']} {1e6 * sec:.2f}" for c, sec in rows)
+            log(f"[autotune] {m}x{k}x4 planes={planes}: us a call: "
+                f"{cands}  ({kind})")
+            log(f"[autotune] {m}x{k}x4 planes={planes} winner: "
+                f"{json.dumps(win)}")
+    sweep_s = time.perf_counter() - t0
+    cache.save()
+    problems = autotune.validate(autotune.DEFAULT_CACHE_PATH)
+    if problems:
+        raise AssertionError(f"checked-in autotune cache: {problems}")
+    want = len(TUNED_PLANES) * sum(
+        len(autotune.candidate_configs(m, k, 4)) for m, k in tuned_shapes(cfg))
+    if len(timed) != want:
+        raise AssertionError(f"sweep timed {len(timed)} candidates, "
+                             f"expected {want}")
+    log(f"[autotune] {len(timed)} candidates timed in {sweep_s:.1f} s; "
+        f"{len(cache.entries)} entries saved to a temporary cache file; "
+        f"the checked-in cache validates")
+    return {"winners": winners, "candidates": len(timed),
+            "sweep_s": sweep_s, "entries": dict(cache.entries)}
+
+
+def expected_routes(cfg, entries, kind, plans) -> dict:
+    """The route each projection of a planes=2 m_major engine takes under
+    a measured cache, read from the cache's entries: the density-bucket
+    entry, else the shape entry, of (n_out, K, 4); a dense winner takes
+    B1, a sparse-route winner measured on m_major schedules its own
+    route; any other (no entry, or a k_major-measured winner) leaves the
+    0.5 threshold to decide."""
+    from repro_torch.kernels import autotune
+
+    routes = {}
+    for name, (plan, k, n_out) in plans.items():
+        density = plan["schedule"].shape[0] / plan["mask"].numel()
+        key = f"{n_out}x{k}x4|p2.ent8|{kind}"
+        hit = entries.get(f"{key}|d{autotune.density_bucket(density)}") \
+            or entries.get(key)
+        if hit is not None and hit["dispatch"] == "dense":
+            routes[name] = ("dense", hit)
+        elif hit is not None and hit["order"] == "m_major":
+            routes[name] = (hit["dispatch"], hit)
+        else:
+            routes[name] = ("sparse" if density <= 0.5 else "dense", hit)
+    return routes
+
+
+def serve_counted(cfg, params, spec_text, prompts, dev) -> dict:
+    """Serve ``prompts`` on a fresh engine: its tokens, launches, steps,
+    plan_stats, the first layer's record of each projection and the
+    autotune cache's lookup counts over the engine's life."""
+    import torch
+    from repro_torch.engine import QuantSpec
+    from repro_torch.kernels import autotune
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.request import ServeRequest
+
+    cache = autotune.get_cache()
+    hits, misses = cache.hits, cache.misses
+    eng = ServeEngine(cfg, 4, 64, quant=QuantSpec.parse(spec_text),
+                      params=params, device=dev)
+    reqs = [ServeRequest(i, list(p), 16) for i, p in enumerate(prompts)]
+    zero_counts()
+    stats = eng.run(reqs)
+    launches = read_counts()
+    torch.cuda.synchronize()
+    layer0 = eng.params["blocks"][0]
+    plans = {}
+    for group, names in (("attn", ("wq", "wk", "wv", "wo")),
+                         ("mlp", ("up", "gate", "down"))):
+        for name in names:
+            node = layer0[group][name]
+            plans[name] = (node["w_plan"], *node["w"].shape)
+    out = {"tokens": [r.out for r in reqs], "launches": launches,
+           "steps": stats["engine_steps"], "plan_stats": eng.plan_stats,
+           "plans": plans, "hits": cache.hits - hits,
+           "misses": cache.misses - misses}
+    del eng
+    return out
+
+
+def tuned_serving(cfg, params, dev, log, kind, prompts, want_tokens,
+                  path, entries) -> dict:
+    """Phase 7 (d) and (e): planes=2 pallas_sparse (dispatch 'auto') on 3
+    prompts, first with REPRO_AUTOTUNE_CACHE naming the sweep's file --
+    each projection launches the kernel of the route expected_routes reads
+    from it -- then with no env var: B3 everywhere, no lookup hit.  Both
+    emit phase 4's planes=2 tokens."""
+    import os
+    from repro_torch.kernels import autotune
+
+    spec = "planes=2,encoding=ent,act_quant=per_token,impl=pallas_sparse"
+    out = {}
+    for tuned in (True, False):
+        if tuned:
+            os.environ[autotune.ENV_VAR] = str(path)
+        else:
+            os.environ.pop(autotune.ENV_VAR, None)
+        autotune.reset_cache()
+        run = serve_counted(cfg, params, spec, prompts, dev)
+        if run["tokens"] != want_tokens:
+            raise AssertionError(f"phase 7 tuned={tuned}: tokens differ "
+                                 f"from phase 4's planes=2 tokens")
+        calls = cfg.n_layers * run["steps"]
+        if tuned:
+            routes = expected_routes(cfg, entries, kind, run["plans"])
+        else:
+            routes = {name: ("sparse", None) for name in run["plans"]}
+        expect = dict.fromkeys(KERNELS, 0)
+        for route, _hit in routes.values():
+            expect[ROUTE_KERNELS[route]] += calls
+        if run["launches"] != expect:
+            raise AssertionError(f"phase 7 tuned={tuned}: launches "
+                                 f"{run['launches']}, expected {expect} "
+                                 f"from routes {routes}")
+        if not tuned and run["hits"]:
+            raise AssertionError(f"phase 7 without the env var: "
+                                 f"{run['hits']} cache hits")
+        label = "REPRO_AUTOTUNE_CACHE set" if tuned else "no env var"
+        log(f"[autotune] planes=2 pallas_sparse, {label}: routes "
+            f"{ {n: r for n, (r, _h) in routes.items()} }; launches "
+            f"{json.dumps({n: c for n, c in run['launches'].items() if c})}"
+            f" over {run['steps']} steps; cache hits {run['hits']}, misses "
+            f"{run['misses']}; schedules_verified "
+            f"{run['plan_stats']['schedules_verified']}; tokens equal "
+            f"phase 4's  ({kind})")
+        out["tuned" if tuned else "untuned"] = {
+            "routes": {n: r for n, (r, _h) in routes.items()},
+            "launches": run["launches"], "steps": run["steps"],
+            "hits": run["hits"], "misses": run["misses"],
+            "schedules_verified": run["plan_stats"]["schedules_verified"]}
+        del run
+        free_device_memory()
+    autotune.reset_cache()
+    return out
+
+
+def autotune_phase(cfg, params, dev, log, kind, prompts,
+                   want_tokens) -> dict:
+    """Phase 7: the static analyzers and the measured autotuner on the
+    full-width model ((a)-(e), see the module docstring)."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    out = {"planning": verified_planning(params, dev, log, kind),
+           "seams": seam_host_cost(params, dev, log, kind)}
+    free_device_memory()
+    out["footprints"] = footprint_agreement(cfg, log)
+    tmp = Path(tempfile.mkdtemp(prefix="autotune-"))
+    try:
+        path = tmp / "autotune_cache.json"
+        sweep = tuned_sweep(cfg, dev, log, kind, path)
+        out["sweep"] = {k: v for k, v in sweep.items() if k != "entries"}
+        free_device_memory()
+        out["serving"] = tuned_serving(cfg, params, dev, log, kind, prompts,
+                                       want_tokens, path, sweep["entries"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1952,6 +2342,12 @@ def main(argv=None) -> int:
     log(f"[server] phase 6 in {time.perf_counter() - t0:.1f} s; B1 "
         f"launches in the virtual run {srv['virtual_launches']['bw_gemm_fused']}"
         f"; peak {srv['server_peak_gb']:.2f} GB  ({kind})")
+
+    # -- 7. the static analyzers and the measured autotuner ------------------
+    tuned = autotune_phase(cfg, params, dev, log, kind, prompts[:3],
+                           runs[2, "pallas_fused"]["tokens"][:3])
+    log(f"[autotune] phase 7 in {tuned['seconds']:.1f} s: "
+        f"{json.dumps(tuned['serving'])}")
 
     # -- the kernels line ----------------------------------------------------
     replaces = {"bw_gemm_fused": "src/repro/kernels/bw_gemm.py:215",

@@ -8,12 +8,13 @@ Off by default and zero-cost when off: every hook site guards on
 """
 from .inject import (ENV_CHAOS, FAULT_KINDS, FAULT_SITES,  # noqa: F401
                      Fault, FaultPlan, InjectedFault, ServerCrashed,
-                     ShardLost, WorkerKilled, active_plan, enabled,
-                     install, maybe_raise, plan_from_env, uninstall)
+                     ShardLost, WorkerKilled, active_plan, corrupt_if_due,
+                     enabled, install, maybe_raise, plan_from_env,
+                     uninstall)
 
 __all__ = [
     "ENV_CHAOS", "FAULT_KINDS", "FAULT_SITES", "Fault", "FaultPlan",
     "InjectedFault", "ServerCrashed", "ShardLost", "WorkerKilled",
-    "active_plan", "enabled", "install", "maybe_raise",
+    "active_plan", "corrupt_if_due", "enabled", "install", "maybe_raise",
     "plan_from_env", "uninstall",
 ]

@@ -27,8 +27,10 @@ Fault kinds and the sites that poll them:
                                      apply to raise ShardLost in yet)
     kernel_raise   kernel.dispatch   ``ops.planned_dense_apply`` raises
                                      InjectedFault at the dispatch seam
-    corrupt_cache  autotune.load     (parsed; the port has no autotune
-                                     cache to corrupt yet)
+    corrupt_cache  autotune.load     the next ``AutotuneCache`` read sees
+                                     a (seed-deterministically) corrupted
+                                     payload -- exercises the fallback to
+                                     the static block table
 
 Zero-cost contract (same as ``repro_torch.obs``): with ``REPRO_CHAOS`` unset
 and no plan installed, ``enabled()`` is a module-bool check — every
@@ -53,7 +55,7 @@ from repro_torch.obs import trace as obs_trace
 __all__ = ["ENV_CHAOS", "InjectedFault", "WorkerKilled", "ShardLost",
            "ServerCrashed", "Fault", "FaultPlan", "FAULT_KINDS",
            "FAULT_SITES", "enabled", "install", "uninstall", "active_plan",
-           "plan_from_env", "maybe_raise"]
+           "plan_from_env", "maybe_raise", "corrupt_if_due"]
 
 ENV_CHAOS = "REPRO_CHAOS"
 
@@ -334,3 +336,12 @@ _env_plan = plan_from_env()
 if _env_plan is not None:
     _PLAN = _env_plan
 del _env_plan
+
+
+def corrupt_if_due(site: str, text: str) -> str:
+    """Return ``text`` corrupted if a ``corrupt_cache`` fault is due --
+    truncated at a seed-deterministic offset, mimicking a partial write."""
+    if _PLAN is None or not _PLAN.poll(site):
+        return text
+    cut = random.Random(_PLAN.seed).randrange(max(len(text) // 2, 1))
+    return text[:cut]

@@ -18,12 +18,20 @@ same arrays as the reference's (``repro.kernels.ops.plan_dense_weight``),
 its annotated ``[L, 9]`` block schedule included.  ``planned_dense_apply``
 routes a call to one of three kernel pairs: ``dense`` (B1/B2, the mask),
 ``sparse`` (B3/B4, an m_major schedule) or ``pipelined`` (B5/B6, either
-schedule order); ``auto`` picks by the schedule's density.
+schedule order); ``auto`` asks the measured autotune cache
+(``kernels.autotune``) for a per-(shape, density) winner and otherwise
+picks by the schedule's density.
+
+With ``verify=`` (default: the ``REPRO_VERIFY`` env toggle) every plan is
+run through the static analyzers (``repro_torch.analysis``) once, on the
+host arrays it was built from, before its schedule goes to the device;
+the apply seam reads only an identity memo of what planning settled.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import os
 import weakref
 from typing import Optional
 
@@ -37,6 +45,7 @@ from repro_torch.core import quant as quantlib
 from repro_torch.engine.spec import QuantSpec
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
+from . import autotune
 from . import bw_gemm as _bw
 from . import encode as _enc_kernel
 from . import quant_gemm as _qg
@@ -67,7 +76,68 @@ __all__ = ["PlannedOperand", "encode_planes", "plane_block_mask",
            "pad_schedule", "schedule_stats", "bw_gemm_sparse",
            "bw_gemm_sparse_fused", "bw_gemm_sparse_pipelined",
            "bw_gemm_sparse_fused_pipelined", "SPARSE_DENSITY_THRESHOLD",
-           "SCHEDULE_ORDERS", "DISPATCHES"]
+           "SCHEDULE_ORDERS", "DISPATCHES", "verification_enabled",
+           "ENV_VERIFY"]
+
+
+# ---------------------------------------------------------------------------
+# Static verification (repro_torch.analysis) at the planning/apply seams
+# ---------------------------------------------------------------------------
+# REPRO_VERIFY=1 turns the schedule verifier + slot-column walk on by
+# default at every plan build; the test suite enables it globally.  A plan
+# is verified on the host arrays build_schedule holds, before its schedule
+# goes to the device.  Every schedule a plan builds enters an identity memo
+# (weakref-evicted) with whether it was verified, so its default
+# (verify=None) is settled once, when it is built: the apply seam reads
+# only the memo, and the card pays no copy back to the host and no env
+# read a call.
+
+ENV_VERIFY = "REPRO_VERIFY"
+
+_VERIFIED_SCHEDULES: dict = {}      # id -> (weakref, verified)
+
+
+def _verify_enabled(verify: Optional[bool]) -> bool:
+    if verify is not None:
+        return bool(verify)
+    return os.environ.get(ENV_VERIFY, "0").lower() not in (
+        "", "0", "false", "off", "no")
+
+
+def verification_enabled() -> bool:
+    """True when plan verification is on by default ($REPRO_VERIFY)."""
+    return _verify_enabled(None)
+
+
+def _schedule_state(sched) -> Optional[bool]:
+    """True: verified; False: planned here with verification off; None: a
+    schedule no plan of this module built (or one since freed)."""
+    entry = _VERIFIED_SCHEDULES.get(id(sched))
+    if entry is None or entry[0]() is not sched:
+        return None
+    return entry[1]
+
+
+def _schedule_verified(sched) -> bool:
+    return bool(_schedule_state(sched))
+
+
+def _mark_schedule(sched, verified: bool) -> None:
+    try:
+        _VERIFIED_SCHEDULES[id(sched)] = (weakref.ref(
+            sched, lambda _r, key=id(sched):
+            _VERIFIED_SCHEDULES.pop(key, None)), verified)
+    except TypeError:
+        pass                  # not weakref-able: skip the memo, stay correct
+
+
+def _verify_schedule(schedule, host_schedule: np.ndarray,
+                     host_mask: np.ndarray, radix: int, order: str) -> None:
+    """Verify a plan's host arrays; memoize its (device) schedule tensor."""
+    from repro_torch import analysis
+    analysis.verify_plan({"schedule": host_schedule, "mask": host_mask},
+                         radix, order).raise_if_errors()
+    _mark_schedule(schedule, True)
 
 
 def _pad_to(x: torch.Tensor, mult: int, axis: int) -> torch.Tensor:
@@ -89,9 +159,9 @@ def encode_planes(a: torch.Tensor, encoding: str = "ent",
 # Per-shape block-size selection
 # ---------------------------------------------------------------------------
 # The reference's static dispatch table: first row whose minimum (M, K, N)
-# thresholds are all met wins.  (The reference consults a measured autotune
-# cache first; the port has none yet, so a shape the cache covers there
-# may plan with other blocks here.)
+# thresholds are all met wins.  It is the fallback: select_block_sizes asks
+# the measured autotune cache (kernels.autotune, REPRO_AUTOTUNE_CACHE)
+# first, and both packages read the same entries for the CPU's backend.
 _BLOCK_TABLE = (
     # (min_m, min_k, min_n)  ->  (block_m, block_k, block_n)
     ((512, 2048, 512), (256, 512, 256)),
@@ -102,14 +172,24 @@ _BLOCK_TABLE = (
 
 
 def select_block_sizes(m: int, k: int, n: int,
-                       spec: Optional[QuantSpec] = None):
-    """(block_m, block_k, block_n) for a logical [M, K] x [K, N] GEMM; a
-    spec's explicit block overrides win component-wise."""
-    sel = _BLOCK_TABLE[-1][1]
-    for (mn_m, mn_k, mn_n), blocks in _BLOCK_TABLE:
-        if m >= mn_m and k >= mn_k and n >= mn_n:
-            sel = blocks
-            break
+                       spec: Optional[QuantSpec] = None, *, device=None):
+    """(block_m, block_k, block_n) for a logical [M, K] x [K, N] GEMM.
+
+    Resolution order: (1) a measured winner from the autotune cache for
+    this (shape, spec-plan) key and the backend of ``device`` (None: the
+    CPU), (2) the static table, with an AutotuneCacheMissWarning when an
+    explicitly configured cache lacks the shape.  A spec's explicit block
+    overrides win component-wise over both.
+    """
+    hit = autotune.get_cache().lookup(m, k, n, spec, device=device)
+    if hit is not None:
+        sel = (hit["block_m"], hit["block_k"], hit["block_n"])
+    else:
+        sel = _BLOCK_TABLE[-1][1]
+        for (mn_m, mn_k, mn_n), blocks in _BLOCK_TABLE:
+            if m >= mn_m and k >= mn_k and n >= mn_n:
+                sel = blocks
+                break
     if spec is not None:
         sel = (spec.block_m or sel[0], spec.block_k or sel[1],
                spec.block_n or sel[2])
@@ -319,6 +399,14 @@ def plan_operand(a_int8: torch.Tensor, encoding: str = "ent",
     'k_major' schedules need the pipelined kernels.  The schedule lands on
     the operand's device.
     """
+    return _plan_operand(a_int8, encoding, block_m, block_k, reorder_rows,
+                         encode_impl, bits, order)[0]
+
+
+def _plan_operand(a_int8, encoding, block_m, block_k, reorder_rows,
+                  encode_impl, bits, order):
+    """plan_operand, also returning the host schedule and mask the plan's
+    schedule was built from (what plan-time verification reads)."""
     if encode_impl not in _ENCODE_IMPLS:
         raise ValueError(f"encode_impl must be one of {_ENCODE_IMPLS}, got "
                          f"{encode_impl!r}")
@@ -347,10 +435,12 @@ def plan_operand(a_int8: torch.Tensor, encoding: str = "ent",
         # EN-T int8 only, and any other encoding or width takes the oracle
         digits = kref.encode_planes_ref(a_sorted, encoding, bits)
         mask = plane_block_mask(digits, block_m, block_k)
-    schedule = torch.from_numpy(build_schedule(
-        mask, enc.radix(encoding), order)).to(a.device)
-    return PlannedOperand(digits, mask, row_perm, inv_perm, m, k, block_m,
-                          block_k, encoding, schedule, order)
+    host_mask = mask.cpu().numpy()
+    host_schedule = build_schedule(host_mask, enc.radix(encoding), order)
+    schedule = torch.from_numpy(host_schedule).to(digits.device)
+    return (PlannedOperand(digits, mask, row_perm, inv_perm, m, k, block_m,
+                           block_k, encoding, schedule, order),
+            host_schedule, host_mask)
 
 
 def _channel_rows(vec: torch.Tensor, n: int, m_pad: int,
@@ -360,8 +450,6 @@ def _channel_rows(vec: torch.Tensor, n: int, m_pad: int,
     full = torch.zeros((m_pad,), dtype=torch.float32, device=row_perm.device)
     full[:n] = vec.to(torch.float32).reshape(-1)
     return full[row_perm.long()].reshape(-1, 1)
-
-
 
 
 # ---------------------------------------------------------------------------
@@ -433,17 +521,29 @@ def plan_cache_clear() -> None:
     _PLAN_CACHE.clear()
 
 
-def _plan(w, spec: QuantSpec, order: str):
+def _device_of(w) -> torch.device:
+    return w.device if isinstance(w, torch.Tensor) else torch.device("cpu")
+
+
+def _plan(w, spec: QuantSpec, order: str, verify: Optional[bool]):
     k, n = w.shape
-    block_m, block_k, _ = select_block_sizes(n, k, 128, spec)
+    block_m, block_k, _ = select_block_sizes(n, k, 128, spec,
+                                             device=_device_of(w))
     wt = torch.as_tensor(w)
     qw, sw = quantlib.quantize_for_spec(wt.to(torch.float32), spec, axis=0)
-    planned = plan_operand(qw.t(), encoding=spec.encoding, block_m=block_m,
-                           block_k=block_k, bits=spec.bits, order=order)
-    return planned, sw.to(torch.float32)
+    planned, host_schedule, host_mask = _plan_operand(
+        qw.t(), spec.encoding, block_m, block_k, True, "ref", spec.bits,
+        order)
+    if _verify_enabled(verify):
+        _verify_schedule(planned.schedule, host_schedule, host_mask,
+                         spec.radix, order)
+    else:
+        _mark_schedule(planned.schedule, False)
+    return planned, sw.to(torch.float32), (host_schedule, host_mask)
 
 
-def plan_for(w, spec, order: str = "m_major"):
+def plan_for(w, spec, order: str = "m_major",
+             verify: Optional[bool] = None):
     """Quantize + plan a dense weight for the kernel path, with caching.
 
     w: float [K, N] (d_in, d_out), a tensor or numpy.  Returns
@@ -451,36 +551,60 @@ def plan_for(w, spec, order: str = "m_major"):
     per-channel weight scale sw [1, N]).  Entries key on (weight,
     spec.plan_key(), blocks, shape, order), so one weight planned under
     two specs or two orders holds two entries.
+
+    verify: run the repro_torch.analysis schedule verifier + slot-column
+    walk on the freshly built plan's host arrays and raise
+    ``AnalysisError`` on any violation (None: the ``REPRO_VERIFY`` env
+    toggle).  A cached plan whose schedule is in the verified memo is not
+    re-checked; one cached unverified is verified now, from a host copy.
     """
     spec = QuantSpec.coerce(spec)
     k, n = w.shape
-    block_m, block_k, _ = select_block_sizes(n, k, 128, spec)
+    block_m, block_k, _ = select_block_sizes(n, k, 128, spec,
+                                             device=_device_of(w))
     params = spec.plan_key() + (int(block_m), int(block_k), k, n, order,
                                 None)
 
     def build():
         with obs_trace.span("plan.plan_for", k=k, n=n, order=order,
                             planes=spec.planes, shards="1x1"):
-            return _plan(w, spec, order)
+            return _plan(w, spec, order, verify)[:2]
 
-    return _PLAN_CACHE.lookup(w, params, build)
+    planned, sw = _PLAN_CACHE.lookup(w, params, build)
+    if planned.schedule is not None and \
+            not _schedule_verified(planned.schedule) and \
+            _verify_enabled(verify):
+        # a hit on a plan first built with verification off
+        _verify_schedule(planned.schedule, planned.schedule.cpu().numpy(),
+                         planned.mask.cpu().numpy(), spec.radix, order)
+    return planned, sw
 
 
 def plan_dense_weight(w, spec, use_cache: bool = True,
-                      order: str = "m_major") -> dict:
+                      order: str = "m_major",
+                      verify: Optional[bool] = None) -> dict:
     """Quantize + plan a dense weight w [K, N] (d_in, d_out) into a record.
 
     The record holds the digit planes of W^T (output channels as kernel
     rows), the occupancy mask, the annotated block schedule in ``order``,
     the channel permutations and the permuted weight scales: the
     reference's record, on the weight's device.  use_cache: go through
-    ``plan_for``'s cache (the reference's default).
+    ``plan_for``'s cache (the reference's default).  verify: as in
+    :func:`plan_for`.
     """
-    spec = QuantSpec.coerce(spec)
+    return _plan_record(w, QuantSpec.coerce(spec), use_cache, order,
+                        verify)[0]
+
+
+def _plan_record(w, spec: QuantSpec, use_cache: bool, order: str,
+                 verify: Optional[bool]):
+    """plan_dense_weight's record, and the host (schedule, mask) it was
+    built from when it was built here (None for a cached plan)."""
+    host = None
     if use_cache:
-        planned, sw = plan_for(w, spec, order=order)
+        planned, sw = plan_for(w, spec, order=order, verify=verify)
     else:
-        planned, sw = _plan(w, spec, order)
+        planned, sw, host = _plan(w, spec, order, verify)
     n = w.shape[1]
     m_pad = planned.digits.shape[1]
     return {
@@ -490,7 +614,7 @@ def plan_dense_weight(w, spec, use_cache: bool = True,
         "row_perm": planned.row_perm,                 # int32 [M_pad]
         "inv_perm": planned.inv_perm,                 # int32 [M_pad]
         "sw_rows": _channel_rows(sw.reshape(-1), n, m_pad, planned.row_perm),
-    }
+    }, host
 
 
 def _resolve_dispatch(dispatch: str, plan: dict, spec, n_out: int, k: int,
@@ -500,12 +624,12 @@ def _resolve_dispatch(dispatch: str, plan: dict, spec, n_out: int, k: int,
     The decision reads shapes only, so it never waits on the device: the
     schedule length L counts live blocks + per-empty-row sentinels (+
     stack padding), and L / mask.numel() is the density proxy.  'auto'
-    takes a sparse route when that proxy is at most
-    SPARSE_DENSITY_THRESHOLD: 'sparse' (B3/B4) for m_major schedules,
-    'pipelined' (B5/B6) for k_major ones, whose non-consecutive row
-    revisits only the pipelined kernels take.  The reference first asks
-    its measured autotune cache; the port has none yet, so it decides by
-    the threshold alone (spec, n_out, k and batch would key that cache).
+    asks the measured autotune cache for a per-(shape, density-bucket)
+    winner measured on the plan's device's backend, and on a miss takes a
+    sparse route when the proxy is at most SPARSE_DENSITY_THRESHOLD:
+    'sparse' (B3/B4) for m_major schedules, 'pipelined' (B5/B6) for
+    k_major ones, whose non-consecutive row revisits only the pipelined
+    kernels take.
     """
     if order not in SCHEDULE_ORDERS:
         raise ValueError(f"order must be one of {SCHEDULE_ORDERS}, "
@@ -526,7 +650,51 @@ def _resolve_dispatch(dispatch: str, plan: dict, spec, n_out: int, k: int,
                          f"got {dispatch!r}")
     sparse_route = "pipelined" if order == "k_major" else "sparse"
     density = plan["schedule"].shape[0] / max(plan["mask"].numel(), 1)
+    hit = autotune.get_cache().lookup(
+        n_out, k, batch, spec, density=density,
+        device=getattr(plan["schedule"], "device", None))
+    if hit is not None and hit.get("dispatch") in ("sparse", "dense",
+                                                   "pipelined"):
+        won = hit["dispatch"]
+        if won == "dense":
+            return "dense"
+        # a measured sparse-route winner only transfers when it was
+        # measured under *this plan's* schedule order (a k_major-measured
+        # pipelined win says nothing about an m_major schedule's walk);
+        # entries without an order are trusted as order-agnostic
+        if hit.get("order") in (None, order):
+            if won == "pipelined":
+                return "pipelined"
+            if order == "m_major":                    # won == "sparse"
+                return "sparse"
+        elif won in ("sparse", "pipelined") and order == "k_major":
+            # a sparse-route win that cannot run B3/B4 on this plan: the
+            # nearest legal sparse route is still measured-informed
+            return "pipelined"
+        # otherwise the ranking does not transfer: fall through
     return sparse_route if density <= SPARSE_DENSITY_THRESHOLD else "dense"
+
+
+def _maybe_verify_plan(plan: dict, spec, order: str,
+                       verify: Optional[bool]) -> None:
+    """planned_dense_apply's pre-kernel verification seam.
+
+    It reads the identity memo first: a schedule verified at plan time
+    (or by an earlier call) costs one dict lookup, and so does one planned
+    with verification off when verify is None (its default was settled
+    when it was built).  Only a record no plan built, or an explicit
+    verify=True on an unverified plan, is verified here, from a host copy
+    of its arrays, once."""
+    sched, mask = plan.get("schedule"), plan.get("mask")
+    if sched is None or getattr(sched, "ndim", 0) != 2:
+        return
+    state = _schedule_state(sched)
+    if state or (verify is None and state is False) or \
+            not _verify_enabled(verify):
+        return
+    host = [t.cpu().numpy() if isinstance(t, torch.Tensor) else
+            np.asarray(t) for t in (sched, mask)]
+    _verify_schedule(sched, host[0], host[1], spec.radix, order)
 
 
 # ---------------------------------------------------------------------------
@@ -737,7 +905,8 @@ def planned_dense_apply(plan: dict, x: torch.Tensor, spec, n_out: int, *,
                         bias=None, activation=None,
                         out_dtype=torch.float32, fused: bool = True,
                         dispatch: str = "dense",
-                        order: str = "m_major") -> torch.Tensor:
+                        order: str = "m_major",
+                        verify: Optional[bool] = None) -> torch.Tensor:
     """y = act((x @ w)_int * s_x * s_w + bias) through a bw_gemm kernel.
 
     plan: record from plan_dense_weight, built under the same spec.
@@ -750,10 +919,17 @@ def planned_dense_apply(plan: dict, x: torch.Tensor, spec, n_out: int, *,
     accumulator from the kernel and runs the epilogue here.
 
     dispatch: 'dense' (B1/B2, the mask), 'sparse' (B3/B4, an m_major
-    schedule), 'pipelined' (B5/B6, either order) or 'auto' (a sparse route
-    when the schedule's density proxy is at most
-    SPARSE_DENSITY_THRESHOLD).  order names the plan's schedule order:
-    'k_major' plans take only the dense or pipelined routes.
+    schedule), 'pipelined' (B5/B6, either order) or 'auto' (the autotune
+    cache's measured winner, else a sparse route when the schedule's
+    density proxy is at most SPARSE_DENSITY_THRESHOLD).  order names the
+    plan's schedule order: 'k_major' plans take only the dense or
+    pipelined routes.
+
+    verify: check the plan's schedule before any kernel sees it; a
+    corrupt schedule raises ``repro_torch.analysis.AnalysisError``.  None
+    keeps what was settled when the plan was built (verified or not, by
+    ``REPRO_VERIFY`` then) and reads only the memo; a record no plan
+    built follows the ``REPRO_VERIFY`` env toggle.
     """
     spec = QuantSpec.coerce(spec)
     bw_n = plan["digits"].shape[0]
@@ -762,6 +938,10 @@ def planned_dense_apply(plan: dict, x: torch.Tensor, spec, n_out: int, *,
             f"plan record has {bw_n} digit planes but spec "
             f"{spec.encoding!r}/{spec.bits}b implies {spec.num_digits}; "
             f"was the plan built under a different spec?")
+    # verify only after the spec/plan compatibility check: a plan applied
+    # under a foreign spec fails with the message above, not with the
+    # verifier's radix-mismatch diagnostics
+    _maybe_verify_plan(plan, spec, order, verify)
     k = x.shape[-1]
     batch = x.numel() // max(k, 1)
     route = _resolve_dispatch(dispatch, plan, spec, n_out, k, batch, order)
@@ -887,21 +1067,30 @@ def plan_params(params, spec, order: Optional[str] = None):
                for k, v in node.items()}
         w = node.get("w")
         if isinstance(w, torch.Tensor) and w.dim() == 2:
-            out["w_plan"] = plan_dense_weight(w, spec, use_cache=not layered,
-                                              order=order)
-            groups.setdefault(path, []).append(out["w_plan"])
+            out["w_plan"], host = _plan_record(w, spec, not layered, order,
+                                               None)
+            groups.setdefault(path, []).append((out["w_plan"], host))
             count += 1
         return out
 
+    # Padding a layer's schedule makes a new tensor: it is padded from, and
+    # verified on, the host arrays the layer was planned from.
     groups = {}
     planned = walk(params, (), groups)
     for plans in groups.values():
-        steps = max(p["schedule"].shape[0] for p in plans)
-        for p in plans:
+        steps = max(p["schedule"].shape[0] for p, _ in plans)
+        for p, host in plans:
             if p["schedule"].shape[0] < steps:
-                p["schedule"] = torch.from_numpy(pad_schedule(
-                    p["schedule"].cpu().numpy(), steps)).to(
-                        p["schedule"].device)
+                # a padded weight is a layer's, planned here: host is set
+                host_schedule, host_mask = host
+                host_schedule = pad_schedule(host_schedule, steps)
+                p["schedule"] = torch.from_numpy(host_schedule).to(
+                    p["schedule"].device)
+                if verification_enabled():
+                    _verify_schedule(p["schedule"], host_schedule,
+                                     host_mask, spec.radix, order)
+                else:
+                    _mark_schedule(p["schedule"], False)
     return planned, count
 
 

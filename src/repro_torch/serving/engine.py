@@ -118,6 +118,8 @@ class ServeEngine:
             self.plan_density = ops.plan_tree_density(self.params)
             self.plan_stats = {"planned_weights": planned,
                                "plane_block_density": self.plan_density,
+                               "schedules_verified":
+                                   ops.verification_enabled(),
                                **ops.plan_cache_stats()}
         self.slots = SlotAllocator(batch, max_len, audit=audit)
         self.steps = 0

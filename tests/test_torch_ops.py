@@ -23,6 +23,7 @@ from repro.engine import get_engine as jget_engine
 from repro.kernels import bw_gemm as jbw
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch import analysis as tanalysis
 from repro_torch.engine import QuantSpec as TSpec
 from repro_torch.engine import get_engine as tget_engine
 from repro_torch.kernels import bw_gemm as tbw
@@ -39,10 +40,12 @@ BIAS_TOL = dict(rtol=1e-6, atol=1e-6)
 MAIN_SPEC = "planes=3,encoding=ent,impl=pallas_fused,act_quant=per_token"
 
 # (d_in, d_out) weight shapes: none a multiple of the plan blocks on both
-# axes, and none that the reference's autotune cache holds an entry for
-# ((m, k) = (192, 256) and (256, 256)), so both packages plan with the
-# static block table.
+# axes.  Both packages read the same autotune cache entries (the port's
+# checked-in cache is the reference's), so the two CI shapes the cache
+# covers, (m, k) = (192, 256) and (256, 256), plan with the same blocks
+# too (CI_WEIGHT_SHAPES).
 WEIGHT_SHAPES = [(200, 130), (300, 520), (520, 300), (64, 40)]
+CI_WEIGHT_SHAPES = [(256, 192), (256, 256)]
 
 
 def _weight(shape, seed):
@@ -62,6 +65,8 @@ def _both_plans(w, text):
 
 @pytest.mark.parametrize("shape,text", [
     *((shape, MAIN_SPEC) for shape in WEIGHT_SHAPES),
+    *((shape, MAIN_SPEC) for shape in CI_WEIGHT_SHAPES),
+    *((shape, "planes=2,encoding=ent") for shape in CI_WEIGHT_SHAPES),
     ((300, 520), "planes=4,encoding=mbe"),
     ((200, 130), "planes=8,encoding=bitserial"),
     ((520, 300), "planes=2,encoding=ent,block_m=256")])
@@ -255,10 +260,16 @@ def test_wrappers_reject_malformed_operands():
     with pytest.raises(ValueError, match="dispatch"):
         tops.planned_dense_apply(plan, x, TSpec.parse(MAIN_SPEC), 40,
                                  dispatch="bogus")
+    # a float schedule: the plan verifier refuses it first (the suite
+    # runs with REPRO_VERIFY=1), the kernel wrapper without verification
+    with pytest.raises(tanalysis.AnalysisError, match="SCHED_BAD_SHAPE"):
+        tops.planned_dense_apply(dict(plan, schedule=torch.zeros(1, 9)), x,
+                                 TSpec.parse(MAIN_SPEC), 40,
+                                 dispatch="sparse", verify=True)
     with pytest.raises(TypeError, match="int32"):
         tops.planned_dense_apply(dict(plan, schedule=torch.zeros(1, 9)), x,
                                  TSpec.parse(MAIN_SPEC), 40,
-                                 dispatch="sparse")
+                                 dispatch="sparse", verify=False)
     assert tops.planned_dense_apply(
         dict(plan, schedule=None), x, TSpec.parse(MAIN_SPEC), 40,
         dispatch="auto").shape == (1, 40)
