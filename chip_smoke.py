@@ -152,6 +152,45 @@ Phases (any failure exits non-zero and prints no result line):
    with no env var: B3 on every projection, no cache hit, the same
    tokens.
 
+8. The full-sequence forward and the dense configs, after the earlier
+   phases' params are freed.  First B1 (with a bias, under every
+   activation) and B2 at the forward's widths N in {256, 4096} at the
+   three path shapes, against their plain versions (``wide_cases``).
+   (a) ``lm_apply`` on the same full-width minicpm-2b params at planes=3
+   through pallas_fused (B1), pallas (B2) and the planes oracle, at
+   batch 4 x 64 tokens (plain causal attention) and batch 1 x 4,096
+   tokens (the chunked online-softmax walk: 4,096 > attn_chunk 2,048):
+   each kernel route launches its kernel 7 x 40 times a forward and no
+   other, the oracle none; the three routes' greedy tokens are equal at
+   every position; then ``lm_prefill`` of the first 48 tokens of the
+   first size and 16 ``lm_decode_step``s (teacher-forced) give the
+   forward's logits at positions 47-63 within PREFILL_LOGIT_ATOL, and
+   on the mean within PREFILL_MEAN_ATOL (the card orders float32 sums
+   by shape; both set from measured sound and broken decodes), and its
+   greedy tokens but at near-ties (B1 launched 7 x 40 x 17 times).  Host
+   and device ms a forward (torch.profiler), B1/B2's part of it beside
+   B1's bound over the 280 plans (``b1_bound_ms``) and peak GB are
+   logged.  (b) nemotron-4-15b (16 of 32 layers: relu2 in B1's
+   epilogue, LayerNorm, GQA 8, an untied head of 256,000 rows),
+   qwen1.5-110b (4 of 80: the qkv bias in B1's epilogue, a head of
+   152,064 rows) and granite-34b (8 of 88: MQA, wk/wv of 128 rows, a
+   head of 49,152 rows), one at a time, at their published widths, the
+   depth one card's 80 GB holds beside the embedding and the planned
+   head; params from a seeded torch.Generator; each served by
+   ServeEngine (batch 3, 3 seeded prompts of 8-24 tokens, 8 new tokens,
+   max_len 32) through pallas_fused and the planes oracle (and pallas
+   where the MLP folds its activation): B1 launched (6 or 7) x layers +
+   1 times a step and nothing else; ms/step, peak GB and B1's longest
+   launch in a profiled decode step (the head's) beside its bound
+   logged.  Both routes'
+   logits teacher-forced through the served sequences must be
+   bit-identical and the tokens equal where no activation is folded;
+   nemotron's oracle rounds the up projection to bfloat16 before relu2
+   (the plain engines' epilogue order, in the reference too), so there
+   B1's lock-step logits must be within ACT_ATOL / ACT_RTOL of B2's
+   (whose epilogue is B1's in plain float32) and B2's served tokens
+   equal B1's, and the oracle's gap is logged.
+
 The kernels line gives, per kernel, one layer's seven launches at N=4
 (four 2304x2304, two 5760x2304 and one 2304x5888 products; B7: one
 encode of each plan shape; B8/B9 at T=4 in phase 5's orientations):
@@ -1489,27 +1528,38 @@ def device_us(evt) -> float:
             or getattr(evt, "self_cuda_time_total", 0) or 0)
 
 
-def profile_steps(eng, dev, steps: int = 3) -> dict:
-    """torch.profiler over ``steps`` decode steps of a served engine: the
-    device time per step (kernel events only; the CPU ops that launched
-    them would count it twice), each bw_gemm kernel's part of it, and the
-    costliest kernels."""
+def profile_step(eng, dev) -> None:
+    """One decode step of a served engine, its tokens read back."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    def one_step():
+    with torch.no_grad():
         logits, _ = eng.api.decode_step(
             eng.params, torch.as_tensor(eng.slots.cur, device=dev),
             torch.as_tensor(eng.slots.pos, device=dev), eng.state, eng.cfg)
         torch.argmax(logits[:, -1, :], dim=-1).cpu()
 
-    with torch.no_grad():
-        one_step()
+
+def profile_steps(eng, dev, steps: int = 3) -> dict:
+    """torch.profiler over ``steps`` decode steps of a served engine
+    (``profile_calls``)."""
+    return profile_calls(lambda: profile_step(eng, dev), steps)[0]
+
+
+def profile_calls(fn, steps: int = 1):
+    """torch.profiler over ``steps`` fn() calls, after one unprofiled
+    call: the device time a call (kernel events only; the CPU ops that
+    launched them would count it twice), each bw_gemm kernel's part of it
+    and its device operations a call, and the costliest kernels.  Returns
+    (that dict, the profile)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
-                one_step()
     kernels = [e for e in prof.key_averages()
                if str(getattr(e, "device_type", "")).endswith("CUDA")]
     total_us = sum(device_us(e) for e in kernels)
@@ -1526,7 +1576,7 @@ def profile_steps(eng, dev, steps: int = 3) -> dict:
             "kernel_ops_per_step": {k: v / steps
                                     for k, v in kern_calls.items()},
             "top_kernels": [(e.key[:90], device_us(e) / 1e3 / steps,
-                             e.count / steps) for e in top]}
+                             e.count / steps) for e in top]}, prof
 
 
 # served kernel -> its CUDA symbol in profiler events
@@ -2187,6 +2237,432 @@ def autotune_phase(cfg, params, dev, log, kind, prompts,
     return out
 
 
+# Phase 8: the full-sequence forward and the dense configs.  (batch,
+# tokens) of the forward: N = 256 on the plain causal path, N = 4,096 on
+# the chunked one (4,096 > attn_chunk 2,048)
+FORWARD_SIZES = ((4, 64), (1, 4096))
+# forward route -> the kernel each projection launches
+FORWARD_ROUTES = {"pallas_fused": "bw_gemm_fused", "pallas": "bw_gemm",
+                  "planes": None}
+PREFILL_TOKENS = 48                  # then decode to the 64th token
+# prefill + decode against the forward: the largest logit gap allowed
+# (also the top-2 margin under which a greedy token may flip) and the
+# mean gap allowed.  The card's float32 sums in attention and the norms
+# are ordered by shape, so a decode step's hidden state can round one ulp
+# from the forward's, and 40 layers of per-token quantization grow that.
+# Measured on this seed (4 x 64 tokens, pallas_fused; NVIDIA H100 80GB
+# HBM3): sound, largest 2.777 and mean 0.148; decode positions one
+# ahead, 4.547 and 0.598; the prompt's last K/V dropped, 4.055 and 0.543;
+# each layer given the next one's cache, 42.9 and 6.10 (PERF.md §6)
+PREFILL_LOGIT_ATOL, PREFILL_MEAN_ATOL = 4.0, 0.3
+WIDE_NS = (256, 4096)                # the forward's N, for B1/B2 alone
+# config -> layers run.  A planned projection holds its float32 weight
+# and four int8 digit planes, about 8 bytes a parameter, and one card's
+# 80 GB holds this many layers beside the embedding and the planned
+# untied head; widths, heads, vocabulary and activation are the
+# published ones.
+DENSE_DEPTHS = {"nemotron-4-15b": 16, "qwen1.5-110b": 4, "granite-34b": 8}
+DENSE_NEW_TOKENS, DENSE_MAX_LEN = 8, 32
+
+
+def spec_of(impl: str):
+    """Phase 8's spec: the main path's, on route ``impl``."""
+    from repro_torch.engine import QuantSpec
+    return QuantSpec.parse(f"planes=3,encoding=ent,act_quant=per_token,"
+                           f"impl={impl}")
+
+
+def wide_cases(dev, log) -> dict:
+    """Phase 8: B1 (with a bias, under every activation) and B2 at the
+    forward's widths WIDE_NS, at the path's shapes, against their plain
+    versions: B2 and B1 without an activation bit for bit, with one
+    within ACT_RTOL / ACT_ATOL.  Returns kernel -> calls checked."""
+    import torch
+    from repro_torch.core import quant
+    from repro_torch.kernels import bw_gemm as bwk
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    calls = {"bw_gemm_fused": 0, "bw_gemm": 0}
+    kw = dict(block_m=128, block_k=256, radix=4)
+    for m, k, _ in PATH_SHAPES:
+        w = torch.randn((k, m), generator=gen, device=dev)
+        qw, sw = quant.quantize_to_planes(w, 3, axis=0)
+        planned = ops.plan_operand(qw.t(), "ent", 128, 256)
+        digits, mask = planned.digits, planned.mask
+        scale = ops._channel_rows(sw.reshape(-1), m, digits.shape[1],
+                                  planned.row_perm)
+        bias = torch.randn((digits.shape[1], 1), generator=gen, device=dev)
+        for n in WIDE_NS:
+            x = torch.randn((n, k), generator=gen, device=dev)
+            qx, sx = quant.quantize_to_planes(x, 3, axis=-1)
+            b = ops._pad_to(qx, 256, 1)
+            sx_cols = sx.reshape(1, -1).contiguous()
+            got = bwk.bw_gemm(digits, b, mask, **kw)
+            if not torch.equal(got, bwk.bw_gemm_plain(digits, b, mask,
+                                                      **kw)):
+                raise AssertionError(f"bw_gemm != plain at M={m} K={k} "
+                                     f"N={n}")
+            calls["bw_gemm"] += 1
+            for act in ACTS:
+                args = (digits, b, mask, scale, bias, sx_cols)
+                got = bwk.bw_gemm_fused(*args, activation=act, **kw)
+                want = bwk.bw_gemm_fused_plain(*args, activation=act, **kw)
+                ok = torch.equal(got, want) if act is None else bool(
+                    torch.all((got - want).abs()
+                              <= ACT_ATOL + ACT_RTOL * want.abs()))
+                if not ok:
+                    raise AssertionError(
+                        f"bw_gemm_fused[{act}] with bias != plain at M={m} "
+                        f"K={k} N={n}: max |diff| "
+                        f"{float((got - want).abs().max())}")
+                calls["bw_gemm_fused"] += 1
+    log(f"[forward] B1 (bias; activations {ACTS}) and B2 at N in "
+        f"{WIDE_NS} on {len(PATH_SHAPES)} shapes equal their plain "
+        f"versions: {json.dumps(calls)} calls")
+    return calls
+
+
+def plan_records(params) -> list:
+    """Every ``w_plan`` record of a planned param tree, in tree order."""
+    def walk(node, out):
+        if isinstance(node, list):
+            for v in node:
+                walk(v, out)
+        elif isinstance(node, dict):
+            if "w_plan" in node:
+                out.append(node["w_plan"])
+            for key, v in node.items():
+                if key != "w_plan":
+                    walk(v, out)
+        return out
+    return walk(params, [])
+
+
+def b1_bound_ms(plans, n: int) -> float:
+    """The least device ms B1 could take for one call on each plan at
+    N=n: the larger of the bytes it must move (the live plane blocks, the
+    int8 activations, the mask, the scales and the float32 output, each
+    once) at 3.35 TB/s and its int8 operations on the live digits at
+    1,979 TOP/s, summed over the calls (phase 3's accounting)."""
+    total_bytes = total_ops = 0
+    for plan in plans:
+        mask = plan["mask"]
+        _, m_pad, k_pad = plan["digits"].shape
+        live = int(mask.sum()) * (m_pad // mask.shape[1]) * \
+            (k_pad // mask.shape[2])
+        total_bytes += live + n * k_pad + mask.numel() + 4 * m_pad * n \
+            + 4 * (m_pad + n)
+        total_ops += 2 * live * n
+    return 1e3 * max(total_bytes / HBM_BYTES_PER_S,
+                     total_ops / INT8_OPS_PER_S)
+
+
+def longest_launch_us(prof, symbol: str) -> tuple:
+    """(the longest ``symbol`` kernel's device us, how many the profile
+    holds) over a profile's kernel events."""
+    times = [e.device_time_total for e in prof.events()
+             if str(getattr(e, "device_type", "")).endswith("CUDA")
+             and symbol in e.name]
+    return (max(times) if times else None), len(times)
+
+
+def forward_phase(cfg, params, dev, log, kind) -> dict:
+    """Phase 8 (a): ``lm_apply`` on the full-width model through each
+    route of FORWARD_ROUTES at each of FORWARD_SIZES (one forward
+    counted: each kernel route launches its kernel 7 x layers times and
+    nothing else, the oracle none; the routes' greedy tokens equal), and
+    on pallas_fused ``lm_prefill`` of the first PREFILL_TOKENS tokens of
+    the first size then ``lm_decode_step`` to its end, whose logits must
+    be within PREFILL_LOGIT_ATOL of the forward's there, and on the mean
+    within PREFILL_MEAN_ATOL, and whose greedy tokens may differ only
+    where the forward's top-2 margin is within PREFILL_LOGIT_ATOL.  Logs host and device ms a forward, B1/B2's
+    share and peak GB."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    rng = np.random.default_rng(8)
+    tokens = {size: torch.as_tensor(rng.integers(0, cfg.vocab_size, size),
+                                    device=dev) for size in FORWARD_SIZES}
+    layer_calls = 7 * cfg.n_layers
+    first, out, failures = {}, {}, []
+    for impl, kern in FORWARD_ROUTES.items():
+        rcfg = cfg.replace(quant=spec_of(impl))
+        free_device_memory()
+        t0 = time.perf_counter()
+        planned = ops.plan_params(params, rcfg.quant)[0] if kern \
+            else params
+        torch.cuda.synchronize()
+        plan_s = time.perf_counter() - t0
+        for size in FORWARD_SIZES:
+            toks = tokens[size]
+            with torch.no_grad():
+                T.lm_apply(planned, toks[:, :8], rcfg, dev)      # warm-up
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                zero_counts()
+                t0 = time.perf_counter()
+                logits, _ = T.lm_apply(planned, toks, rcfg, dev)
+                torch.cuda.synchronize()
+                host_ms = 1e3 * (time.perf_counter() - t0)
+                launches = read_counts()
+                peak_gb = torch.cuda.max_memory_allocated() / 1e9
+                prof, _ = profile_calls(lambda: T.lm_apply(planned, toks,
+                                                           rcfg, dev))
+            row = {"plan_s": plan_s, "host_ms": host_ms,
+                   "device_ms": prof["device_ms_per_step"],
+                   "kernel_ms": prof["kernel_ms_per_step"].get(
+                       SYMBOLS.get(kern, ""), 0.0),
+                   "kernel_ops": prof["kernel_ops_per_step"].get(
+                       SYMBOLS.get(kern, ""), 0.0),
+                   "peak_gb": peak_gb, "launches": launches}
+            if kern:
+                row["kernel_bound_ms"] = b1_bound_ms(plan_records(planned),
+                                                     size[0] * size[1])
+            what = f"impl={impl} batch {size[0]} x {size[1]} tokens"
+            want = {name: layer_calls if name == kern else 0
+                    for name in KERNELS}
+            if launches != want:
+                failures.append(f"{what}: launches {launches}, expected "
+                                f"{want}")
+            if tuple(logits.shape) != (*size, cfg.padded_vocab) or \
+                    not bool(torch.isfinite(logits).all()):
+                failures.append(f"{what}: bad logits {tuple(logits.shape)}")
+            if size not in first:
+                first[size] = (impl, logits)
+            else:
+                base_impl, base = first[size]
+                row["max_logit_gap"] = float(
+                    (logits.float() - base.float()).abs().max())
+                row["tokens_differ"] = int(
+                    (logits.argmax(-1) != base.argmax(-1)).sum())
+                if row["tokens_differ"]:
+                    failures.append(
+                        f"{what}: {row['tokens_differ']} greedy tokens "
+                        f"differ from impl={base_impl}")
+            if impl == "pallas_fused" and size == FORWARD_SIZES[0]:
+                row["prefill_decode"] = prefill_decode(planned, toks,
+                                                       logits, rcfg, dev)
+                pd = row["prefill_decode"]
+                if pd["launches"] != {name: layer_calls * pd["calls"]
+                                      if name == kern else 0
+                                      for name in KERNELS}:
+                    failures.append(f"prefill + decode: launches "
+                                    f"{pd['launches']}")
+                if any(v > PREFILL_LOGIT_ATOL for v in pd["margins"]) or \
+                        pd["max_logit_gap"] > PREFILL_LOGIT_ATOL or \
+                        pd["mean_logit_gap"] > PREFILL_MEAN_ATOL:
+                    failures.append(
+                        f"prefill + decode: {pd['tokens_differ']} of "
+                        f"{pd['tokens']} greedy tokens differ from the "
+                        f"forward's (top-2 margins there: "
+                        f"{pd['margins']}), largest logit gap "
+                        f"{pd['max_logit_gap']} (allowed "
+                        f"{PREFILL_LOGIT_ATOL} for both), mean "
+                        f"{pd['mean_logit_gap']} (allowed "
+                        f"{PREFILL_MEAN_ATOL})")
+            del logits
+            out[impl, size] = row
+            log(f"[forward] {cfg.name} {what} (N={size[0] * size[1]}): "
+                f"{json.dumps(row)}  ({kind})")
+        del planned
+    del first
+    free_device_memory()
+    if failures:
+        raise AssertionError("phase 8 (a): " + "; ".join(failures))
+    return out
+
+
+def prefill_decode(planned, toks, logits, cfg, dev) -> dict:
+    """lm_prefill of the first PREFILL_TOKENS of ``toks``, then
+    lm_decode_step on each later token (teacher-forced), against the
+    forward's ``logits``: greedy tokens at every position from the
+    prefill's last one to the end (those that differ, with the forward's
+    top-2 margin there), the largest and the mean logit gap, launches."""
+    import torch
+    from repro_torch.models import transformer as T
+
+    b, t = toks.shape
+    zero_counts()
+    with torch.no_grad():
+        step, caches = T.lm_prefill(planned, toks[:, :PREFILL_TOKENS], cfg,
+                                    t, dev)
+        steps = [step]
+        for i in range(PREFILL_TOKENS, t):
+            step, caches = T.lm_decode_step(
+                planned, toks[:, i:i + 1],
+                torch.full((b,), i, dtype=torch.long, device=dev), caches,
+                cfg)
+            steps.append(step)
+        torch.cuda.synchronize()
+    launches = read_counts()
+    got = torch.cat(steps, dim=1).float()
+    want = logits[:, PREFILL_TOKENS - 1:].float()
+    differ = got.argmax(-1) != want.argmax(-1)
+    top2 = want.topk(2, dim=-1).values
+    margins = (top2[..., 0] - top2[..., 1])[differ]
+    return {"calls": len(steps), "tokens": int(differ.numel()),
+            "tokens_differ": int(differ.sum()),
+            "margins": [round(float(v), 4) for v in margins],
+            "max_logit_gap": float((got - want).abs().max()),
+            "mean_logit_gap": float((got - want).abs().mean()),
+            "launches": launches}
+
+
+def dense_config_phase(dev, log, kind) -> dict:
+    """Phase 8 (b): each config of DENSE_DEPTHS at its published widths
+    and the depth one card holds, params from a seeded torch.Generator,
+    served by ServeEngine (batch 3, 3 seeded prompts of 8-24 tokens,
+    DENSE_NEW_TOKENS new tokens) through pallas_fused and the planes
+    oracle, and through pallas (B2) where the MLP folds its activation
+    into the projection's epilogue.  B1 is launched once a projection and
+    once for the untied head a step, nothing else; ms/step, peak GB and
+    B1's longest launch in a profiled decode step (the head's) are
+    logged.  Then both routes' logits teacher-forced through the served
+    sequences (``lockstep_logits``): bit-identical where no activation is
+    folded, and the oracle's tokens equal.  Folded (nemotron's relu2),
+    the oracle rounds the projection to bfloat16 before the activation,
+    as the reference's plain engines do, where B1 and B2 apply it in
+    float32 (ROADMAP C7): there B1's lock-step logits must be within
+    ACT_ATOL + ACT_RTOL * |B2's| of B2's (B2's epilogue is the plain
+    float32 function of B1's) and its served tokens equal B2's, and the
+    oracle's gap and greedy agreement are logged."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.api import get_api
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.request import ServeRequest
+
+    out, failures = {}, []
+    for arch, layers in DENSE_DEPTHS.items():
+        cfg = get_config(arch).replace(n_layers=layers)
+        folded = not cfg.gated_mlp
+        free_device_memory()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = get_api(cfg).init(gen, cfg, dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab_size,
+                                int(rng.integers(8, 25))).tolist()
+                   for _ in range(3)]
+        per_step = (6 if folded else 7) * layers + \
+            (0 if cfg.tie_embeddings else 1)
+        runs, seqs = {}, None
+        for impl in ("pallas_fused",) + (("pallas",) if folded else ()) \
+                + ("planes",):
+            if impl != "pallas_fused":
+                free_device_memory()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            eng = ServeEngine(cfg, 3, DENSE_MAX_LEN, quant=spec_of(impl),
+                              params=params, device=dev)
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            reqs = [ServeRequest(i, list(p), DENSE_NEW_TOKENS)
+                    for i, p in enumerate(prompts)]
+            zero_counts()
+            stats = eng.run(reqs)
+            run = {"tokens": [r.out for r in reqs], "setup_s": setup_s,
+                   "steps": stats["engine_steps"],
+                   "ms_per_step": 1e3 * stats["wall_s"]
+                   / stats["engine_steps"],
+                   "launches": read_counts(),
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            kern = FORWARD_ROUTES[impl]
+            want = {name: per_step * run["steps"] if name == kern else 0
+                    for name in KERNELS}
+            if run["launches"] != want:
+                failures.append(f"{arch} impl={impl}: launches "
+                                f"{run['launches']}, expected {want}")
+            if any(len(t) != DENSE_NEW_TOKENS for t in run["tokens"]):
+                failures.append(f"{arch} impl={impl}: a request did not "
+                                f"generate {DENSE_NEW_TOKENS} tokens")
+            if impl == "pallas_fused":
+                prof, trace = profile_calls(lambda: profile_step(eng, dev))
+                run["device_ms_per_step"] = prof["device_ms_per_step"]
+                run["b1_ms_per_step"] = prof["kernel_ms_per_step"].get(
+                    SYMBOLS["bw_gemm_fused"], 0.0)
+                run["head_us"], run["b1_events"] = longest_launch_us(
+                    trace, SYMBOLS["bw_gemm_fused"])
+                run["head_bound_us"] = 1e3 * b1_bound_ms(
+                    [eng.params["lm_head"]["w_plan"]], len(prompts))
+                del trace
+                seqs = [p + o for p, o in zip(prompts, run["tokens"])]
+            run["lockstep"] = lockstep_logits(eng, seqs, dev)
+            del eng
+            runs[impl] = run
+            log(f"[dense] {arch} ({layers} of {get_config(arch).n_layers} "
+                f"layers) impl={impl}: "
+                f"{json.dumps({k: v for k, v in run.items() if k not in ('tokens', 'lockstep')})}"
+                f"  ({kind})")
+        kernel, oracle = runs["pallas_fused"], runs["planes"]
+        kernel_lock = kernel.pop("lockstep")
+        lock = lockstep_agreement(kernel_lock, oracle.pop("lockstep"))
+        lock["served_tokens_equal"] = oracle["tokens"] == kernel["tokens"]
+        log(f"[dense] {arch}: the planes oracle against pallas_fused: "
+            f"{json.dumps(lock)}")
+        if folded:
+            b2 = runs["pallas"].pop("lockstep")
+            gap = (kernel_lock - b2).abs()
+            lock_b2 = {"max_logit_gap": float(gap.max()), "within": bool(
+                torch.all(gap <= ACT_ATOL + ACT_RTOL * b2.abs()))}
+            lock_b2["served_tokens_equal"] = \
+                runs["pallas"]["tokens"] == kernel["tokens"]
+            log(f"[dense] {arch}: pallas (B2) against pallas_fused (B1) in "
+                f"lock step: {json.dumps(lock_b2)}")
+            if not (lock_b2["within"] and lock_b2["served_tokens_equal"]):
+                failures.append(f"{arch}: pallas (B2) differs from "
+                                f"pallas_fused (B1): {json.dumps(lock_b2)}")
+            kernel["b2_lockstep"] = lock_b2
+        elif lock["max_logit_gap"] != 0.0 or not lock["served_tokens_equal"]:
+            failures.append(f"{arch}: the planes oracle differs from "
+                            f"pallas_fused: {json.dumps(lock)}")
+        out[arch] = {"layers": layers, "init_s": init_s,
+                     "per_step": per_step, "oracle": lock, **runs}
+        del params
+    free_device_memory()
+    if failures:
+        raise AssertionError("phase 8 (b): " + "; ".join(failures))
+    return out
+
+
+def lockstep_logits(eng, seqs, dev):
+    """Float32 logits [T, B, V] on the host of an engine's model
+    teacher-forced through ``seqs`` (a row a sequence, cut to the
+    shortest) from fresh caches."""
+    import torch
+    t = min(map(len, seqs))
+    toks = torch.as_tensor([q[:t] for q in seqs], device=dev)
+    state = eng.api.init_decode(eng.cfg, len(seqs), t, dev)
+    out = []
+    with torch.no_grad():
+        for j in range(t):
+            logits, state = eng.api.decode_step(
+                eng.params, toks[:, j:j + 1],
+                torch.full((len(seqs),), j, dtype=torch.long, device=dev),
+                state, eng.cfg)
+            out.append(logits[:, 0].float().cpu())
+    return torch.stack(out)
+
+
+def lockstep_agreement(kernel, oracle) -> dict:
+    """Two routes' lock-step logits: the largest gap, and the positions
+    whose greedy tokens differ with the oracle's top-2 margin there."""
+    differ = kernel.argmax(-1) != oracle.argmax(-1)
+    top2 = oracle.topk(2, dim=-1).values
+    return {"positions": int(differ.numel()),
+            "tokens_differ": int(differ.sum()),
+            "margins": [round(float(v), 4)
+                        for v in (top2[..., 0] - top2[..., 1])[differ]],
+            "max_logit_gap": float((kernel - oracle).abs().max())}
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2348,6 +2824,18 @@ def main(argv=None) -> int:
                            runs[2, "pallas_fused"]["tokens"][:3])
     log(f"[autotune] phase 7 in {tuned['seconds']:.1f} s: "
         f"{json.dumps(tuned['serving'])}")
+
+    # -- 8. the full-sequence forward and the dense configs ------------------
+    t0 = time.perf_counter()
+    wide_cases(dev, log)
+    forward_phase(cfg, params, dev, log, kind)
+    del params
+    free_device_memory()
+    dense = dense_config_phase(dev, log, kind)
+    log(f"[dense] phase 8 in {time.perf_counter() - t0:.1f} s; B1 launches "
+        f"{json.dumps({a: r['pallas_fused']['launches']['bw_gemm_fused'] for a, r in dense.items()})}"
+        f"; peak GB {json.dumps({a: round(r['pallas_fused']['peak_gb'], 2) for a, r in dense.items()})}"
+        f"  ({kind})")
 
     # -- the kernels line ----------------------------------------------------
     replaces = {"bw_gemm_fused": "src/repro/kernels/bw_gemm.py:215",

@@ -1,6 +1,6 @@
 """Config schema: the model architecture fields the port's decoder-only
-dense family reads, with the reference's names and defaults
-(``repro.configs.base``)."""
+dense family reads, and the four input-shape cells, with the reference's
+names and defaults (``repro.configs.base``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,7 +8,7 @@ from typing import Optional
 
 from repro_torch.engine.spec import QuantSpec
 
-__all__ = ["ModelConfig", "pad_vocab"]
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "pad_vocab"]
 
 
 def pad_vocab(v: int, multiple: int = 128) -> int:
@@ -27,6 +27,9 @@ class ModelConfig:
     d_ff: int
     vocab_size: int                # raw (pre-padding) vocabulary
     head_dim: int = 0              # 0 -> d_model // n_heads
+    # modality frontend (the VLM family's; the dense forward refuses it)
+    frontend: Optional[str] = None  # 'vision' | 'audio'
+    frontend_tokens: int = 0        # patches / frames per example
     qkv_bias: bool = False
     act: str = "silu"
     gated_mlp: bool = True
@@ -36,6 +39,7 @@ class ModelConfig:
     logit_softcap: float = 0.0
     dtype: str = "bfloat16"        # compute dtype
     param_dtype: str = "float32"
+    attn_chunk: int = 2048         # switch to flash-chunked above this seq
     # quantized-GEMM configuration; None runs the bf16 matmul path
     quant: Optional[QuantSpec] = None
 
@@ -64,3 +68,19 @@ class ModelConfig:
         mlp = (3 if self.gated_mlp else 2) * d * self.d_ff
         emb = self.padded_vocab * d * (1 if self.tie_embeddings else 2)
         return self.n_layers * (attn + mlp) + emb
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str           # 'train' | 'prefill' | 'decode'
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}

@@ -1,17 +1,20 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig (full or smoke).
 
-The port has the dense minicpm-2b so far; the reference's other nine
-architectures follow with their model families.
+The port has the reference's four dense architectures so far, in the
+reference's order; its other six follow with their model families.
 """
 from __future__ import annotations
 
 from typing import List
 
-from . import minicpm_2b
+from . import granite_34b, minicpm_2b, nemotron_4_15b, qwen1_5_110b
 from .base import ModelConfig
 
 _MODULES = {
     "minicpm-2b": minicpm_2b,
+    "nemotron-4-15b": nemotron_4_15b,
+    "qwen1.5-110b": qwen1_5_110b,
+    "granite-34b": granite_34b,
 }
 
 ARCHS: List[str] = list(_MODULES)

@@ -416,11 +416,10 @@ def _plan_operand(a_int8, encoding, block_m, block_k, reorder_rows,
     if reorder_rows:
         # sort rows by their high-plane digit counts (top min(2, BW) planes,
         # most significant first) so rows needing the high planes pack into
-        # few row blocks; the stable sort keeps ties in row order
-        d0 = kref.encode_planes_ref(a, encoding, bits)
-        hi = torch.zeros(a.shape[0], dtype=torch.int64, device=a.device)
-        for p in range(min(2, d0.shape[0])):
-            hi = hi * 1000 + (d0[-(p + 1)] != 0).sum(dim=1)
+        # few row blocks; the stable sort keeps ties in row order.  Counted
+        # a block of rows at a time: a tall weight's planes are gigabytes
+        hi = torch.cat([_high_plane_key(d) for _, d in
+                        kref.encode_row_blocks(a, encoding, bits)])
         row_perm = torch.argsort(-hi, stable=True).to(torch.int32)
     else:
         row_perm = torch.arange(a.shape[0], dtype=torch.int32,
@@ -441,6 +440,15 @@ def _plan_operand(a_int8, encoding, block_m, block_k, reorder_rows,
     return (PlannedOperand(digits, mask, row_perm, inv_perm, m, k, block_m,
                            block_k, encoding, schedule, order),
             host_schedule, host_mask)
+
+
+def _high_plane_key(d: torch.Tensor) -> torch.Tensor:
+    """int64 [rows]: the rows' non-zero digit counts in the top min(2, BW)
+    planes of d [BW, rows, K], most significant first, as one sort key."""
+    hi = torch.zeros(d.shape[1], dtype=torch.int64, device=d.device)
+    for p in range(min(2, d.shape[0])):
+        hi = hi * 1000 + (d[-(p + 1)] != 0).sum(dim=1)
+    return hi
 
 
 def _channel_rows(vec: torch.Tensor, n: int, m_pad: int,
@@ -972,7 +980,9 @@ def _apply_route(plan, x, spec, n_out, route, *, bias, activation,
     per_token = spec.act_quant == "per_token"
     qx, sx = quantlib.quantize_for_spec(x.to(torch.float32), spec,
                                         axis=-1 if per_token else None)
-    bt = _pad_to(qx.reshape(-1, k), block_k, 1)     # [N, K_pad]: token rows
+    # [N, K_pad]: token rows, contiguous for the kernels (an activation
+    # fused into the previous projection's epilogue leaves x transposed)
+    bt = _pad_to(qx.reshape(-1, k), block_k, 1).contiguous()
     inv_perm = plan["inv_perm"].long()
     blocks = dict(block_m=block_m, block_k=block_k)
     if fused:

@@ -23,10 +23,31 @@ def quant_gemm_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return exact_matmul(a, b).to(torch.int32)
 
 
+# Elements encoded at a time: the encoder's int32 temporaries take about
+# 32 bytes an element, so a 256,000 x 6,144 LM head encoded whole would
+# need 50 GB beside its weights; a block of rows needs about 2 GB.
+ENCODE_BLOCK_ELEMS = 1 << 26
+
+
+def encode_row_blocks(a: torch.Tensor, encoding: str = "ent",
+                      bits: int = 8):
+    """Yield (first row, digit planes int8 [BW, rows, K]) of int A [M, K],
+    ENCODE_BLOCK_ELEMS elements at a time."""
+    rows = max(1, ENCODE_BLOCK_ELEMS // max(a.shape[1], 1))
+    for r0 in range(0, a.shape[0], rows):
+        yield r0, enc.encode_torch(a[r0:r0 + rows], encoding,
+                                   bits).movedim(-1, 0)
+
+
 def encode_planes_ref(a: torch.Tensor, encoding: str = "ent",
                       bits: int = 8) -> torch.Tensor:
-    """Encode int A [M, K] into digit planes [BW, M, K] (int8)."""
-    return enc.encode_torch(a, encoding, bits).movedim(-1, 0).contiguous()
+    """Encode int A [M, K] into digit planes [BW, M, K] (int8), a block
+    of rows at a time."""
+    out = torch.empty((enc.num_digits(encoding, bits), *a.shape),
+                      dtype=torch.int8, device=a.device)
+    for r0, planes in encode_row_blocks(a, encoding, bits):
+        out[:, r0:r0 + planes.shape[1]] = planes
+    return out
 
 
 def bw_gemm_ref(digits: torch.Tensor, b: torch.Tensor,

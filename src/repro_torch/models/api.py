@@ -1,13 +1,15 @@
 """Unified per-family model API (``repro.models.api``).
 
-Every family exposes the same entry points so the serving loop is
-architecture-agnostic:
+Every family exposes the same entry points so the training and serving
+loops are architecture-agnostic:
 
     init(gen, cfg, device)                       -> param tree
+    forward(params, batch, cfg, device)          -> (logits [B,T,V], aux)
     init_decode(cfg, batch, max_len, device)     -> decode-state tree
     decode_step(params, tokens, pos, state, cfg) -> (logits [B,1,V], state)
 
-The port has the dense family so far.
+``batch`` is a dict: {"tokens": int [B,T], "labels": int [B,T]}.  The
+port has the dense family so far.
 """
 from __future__ import annotations
 
@@ -18,15 +20,24 @@ import torch
 
 from . import transformer as T
 
-__all__ = ["ModelAPI", "get_api"]
+__all__ = ["ModelAPI", "get_api", "loss_fn", "frontend_len"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelAPI:
     family: str
     init: Callable
+    forward: Callable            # (params, batch, cfg, device) -> (logits, aux)
     init_decode: Callable
     decode_step: Callable
+
+
+def frontend_len(cfg) -> int:
+    return cfg.frontend_tokens if cfg.frontend else 0
+
+
+def _lm_forward(params, batch, cfg, device=None):
+    return T.lm_apply(params, batch["tokens"], cfg, device)
 
 
 def _lm_init_decode(cfg, batch, max_len, device):
@@ -35,7 +46,8 @@ def _lm_init_decode(cfg, batch, max_len, device):
 
 
 _FAMILIES: Dict[str, ModelAPI] = {
-    "dense": ModelAPI("dense", T.lm_init, _lm_init_decode, T.lm_decode_step),
+    "dense": ModelAPI("dense", T.lm_init, _lm_forward, _lm_init_decode,
+                      T.lm_decode_step),
 }
 
 
@@ -45,3 +57,26 @@ def get_api(cfg) -> ModelAPI:
     except KeyError:
         raise ValueError(f"model family {cfg.family!r} is not ported "
                          f"(have {sorted(_FAMILIES)})") from None
+
+
+def loss_fn(params, batch, cfg, device=None):
+    """Next-token cross entropy (float32 logits).
+
+    Returns (loss, metrics dict).  ``labels`` are already shifted by the
+    data pipeline (labels[t] = tokens[t+1]); positions with label < 0 are
+    masked.  Forward only: the port has no training step yet.  The VLM
+    family's modality-prefix mask comes with that family (ROADMAP A6).
+    """
+    logits, aux = get_api(cfg).forward(params, batch, cfg, device)
+    labels = torch.as_tensor(batch["labels"], device=logits.device).long()
+    mask = labels >= 0
+    labels = torch.clamp_min(labels, 0)
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
+    nll = (logz - gold) * mask
+    denom = torch.clamp_min(mask.sum(), 1)
+    loss = nll.sum() / denom
+    total = loss + aux
+    return total, {"loss": loss, "aux_loss": aux,
+                   "tokens": denom.to(torch.float32)}

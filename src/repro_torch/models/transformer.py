@@ -1,20 +1,28 @@
-"""Decoder-only dense transformer LM: init, decode-state init and the
-single-token decode step (``repro.models.transformer``).
+"""Decoder-only dense transformer LM: init, the full-sequence forward,
+prefill, decode-state init and the single-token decode step
+(``repro.models.transformer``).
 
 The reference stacks its layers on a leading axis for ``jax.lax.scan``;
 the port keeps ``params["blocks"]`` as a list of per-layer dicts and
 loops over it.  The KV caches stay stacked, [L, B, S, n_kv, D].
+
+The forward and prefill take the device they run on (``"cuda"`` unless
+told otherwise; without a card that raises) and move the tokens there;
+the params must already live on it.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch import resolve_device
 
 from . import attention as A
 from . import layers as L
 
-__all__ = ["lm_init", "lm_decode_step", "init_caches", "norm_init",
-           "norm_apply", "mlp_init", "mlp_apply", "block_init",
-           "block_decode"]
+__all__ = ["lm_init", "lm_apply", "lm_prefill", "lm_decode_step",
+           "init_caches", "norm_init", "norm_apply", "mlp_init",
+           "mlp_apply", "block_init", "block_apply", "block_decode"]
 
 
 def norm_init(cfg, device) -> dict:
@@ -55,6 +63,16 @@ def block_init(gen, cfg, device) -> dict:
             "mlp": mlp_init(gen, cfg, device)}
 
 
+def block_apply(p, x, cfg, positions, dtype=torch.bfloat16):
+    """One block over a whole sequence; returns (x, aux) with the dense
+    family's aux loss, a float32 zero."""
+    h, _ = A.attn_apply(p["attn"], norm_apply(cfg, p["ln1"], x), cfg,
+                        positions, dtype)
+    x = x + h
+    h = mlp_apply(p["mlp"], norm_apply(cfg, p["ln2"], x), cfg, dtype)
+    return x + h, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 def block_decode(p, x, cfg, ck, cv, pos, dtype=torch.bfloat16):
     h, ck, cv = A.attn_decode(p["attn"], norm_apply(cfg, p["ln1"], x), cfg,
                               ck, cv, pos, dtype)
@@ -87,6 +105,37 @@ def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
             for k, v in one.items()}
 
 
+def _run_blocks(params, x, cfg, positions, dtype):
+    """The layers in order, summing their aux losses.  The reference's
+    ``remat`` (rematerialize each layer in the backward pass) saves
+    gradient memory and changes no forward value, so the port has no such
+    switch."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer in params["blocks"]:
+        x, a = block_apply(layer, x, cfg, positions, dtype)
+        aux = aux + a
+    return x, aux
+
+
+def _embed_inputs(params, tokens, cfg, device):
+    """(x [B, T, d], positions [B, T], dtype) for a prompt, on device."""
+    if cfg.frontend:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.frontend!r} frontend belongs to the VLM "
+            f"family, which is not ported yet (ROADMAP queue A6)")
+    dev = resolve_device(device)
+    table = params["embed"]["table"]
+    if table.device.type != dev.type or \
+            dev.index not in (None, table.device.index):
+        raise ValueError(f"params are on {table.device}, not on {dev}")
+    dtype = getattr(torch, cfg.dtype)
+    tokens = torch.as_tensor(tokens, device=dev)
+    x = L.embed_apply(params["embed"], tokens, dtype)
+    b, t, _ = x.shape
+    positions = torch.arange(t, device=dev)[None, :].expand(b, t)
+    return x, positions, dtype
+
+
 def _logits(params, x, cfg, dtype):
     x = norm_apply(cfg, params["final_norm"], x)
     if cfg.tie_embeddings:
@@ -97,6 +146,40 @@ def _logits(params, x, cfg, dtype):
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits.to(torch.float32) / c)
     return logits
+
+
+def lm_apply(params, tokens, cfg, device=None):
+    """tokens [B, T] -> (logits [B, T, V], aux) on ``device``."""
+    x, positions, dtype = _embed_inputs(params, tokens, cfg, device)
+    x, aux = _run_blocks(params, x, cfg, positions, dtype)
+    return _logits(params, x, cfg, dtype), aux
+
+
+def lm_prefill(params, tokens, cfg, max_len: int, device=None):
+    """Run the full prompt, return (last-position logits [B, 1, V], caches).
+
+    Prefill reuses the full-sequence attention and keeps each layer's K/V
+    in the decode layout: the unrepeated heads (the first of each group of
+    the repeated ones), padded to ``max_len`` >= T, stacked into
+    init_caches' [L, B, max_len, n_kv, D].
+    """
+    x, positions, dtype = _embed_inputs(params, tokens, cfg, device)
+    t = x.shape[1]
+    if max_len < t:
+        raise ValueError(f"max_len {max_len} < prompt length {t}")
+    rep = cfg.n_heads // cfg.n_kv_heads
+    ks, vs = [], []
+    for layer in params["blocks"]:
+        hn = norm_apply(cfg, layer["ln1"], x)
+        attn_out, (k, v) = A.attn_apply(layer["attn"], hn, cfg, positions,
+                                        dtype)
+        x = x + attn_out
+        x = x + mlp_apply(layer["mlp"], norm_apply(cfg, layer["ln2"], x),
+                          cfg, dtype)
+        for kv, out in ((k, ks), (v, vs)):
+            out.append(F.pad(kv[:, :, ::rep, :], (0, 0, 0, 0, 0, max_len - t)))
+    logits = _logits(params, x[:, -1:, :], cfg, dtype)
+    return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
 def lm_decode_step(params, tokens, pos, caches, cfg):
