@@ -191,6 +191,27 @@ Phases (any failure exits non-zero and prints no result line):
    (whose epilogue is B1's in plain float32) and B2's served tokens
    equal B1's, and the oracle's gap is logged.
 
+9. The MoE configs (``moe_config_phase``), after phase 8's params are
+   freed: olmoe-1b-7b whole (16 layers, d_model 2048, 16 x 128 heads, 64
+   experts top-8, d_ff 1024, an untied head of 50,304 rows) and
+   grok-1-314b at its published widths (d_model 6144, 48 / 8 heads x 128,
+   8 experts top-2, d_ff 32,768, tanh-gelu non-gated experts, soft cap
+   30, a head of 131,072 rows) at 4 of its 64 layers, one at a time,
+   params from a seeded torch.Generator, each served by ServeEngine
+   (batch 3, 3 seeded prompts of 8-24 tokens, 8 new tokens, max_len 32)
+   through pallas_fused and the planes oracle.  Only wq, wk, wv, wo and
+   the untied head are planned: B1 launched 4 x layers + 1 times a step
+   and nothing else (the router stays raw, the experts are bf16
+   einsums), the oracle nothing.  Both routes' logits teacher-forced
+   through the served sequences must be bit-identical and the served
+   tokens equal.  ms/step, device and B1 ms a step, the experts' device
+   ms a step (a profiler range around ``moe._experts``: the bf16 weight
+   copies, the einsums, the activation), peak GB, init and plan seconds
+   and the share of the oracle's decode picks dropped by capacity are
+   logged.  On olmoe-1b-7b ``lm_apply`` of 4 x 64 tokens through both
+   routes' params: 4 x 16 + 1 = 65 B1 launches a forward, none on the
+   oracle, equal greedy tokens.  The phase's seconds are logged.
+
 The kernels line gives, per kernel, one layer's seven launches at N=4
 (four 2304x2304, two 5760x2304 and one 2304x5888 products; B7: one
 encode of each plan shape; B8/B9 at T=4 in phase 5's orientations):
@@ -206,7 +227,8 @@ bias.  ``floor_ms`` is phase 3's timing floor, one call's (``ms`` holds
 seven).  B7 moves its input and four digit planes and the mask; B8/B9
 their two int8 operands and the output (B8: and its scale).  A line
 before it gives B1, B2, B8 and B9 at N=512.  ``launches`` is the count
-on the kernel's own route: pallas_fused at planes=3 for B1, pallas for
+on the kernel's own route: pallas_fused at planes=3 for B1 (with phase
+9's two served MoE configs added), pallas for
 B2, pallas_sparse for B3 and pallas_pipelined for B5.  B4 and B6, the
 unfused twins, serve no engine; after the pallas_sparse and
 pallas_pipelined runs, every planned weight of the served model goes
@@ -1561,7 +1583,8 @@ def profile_calls(fn, steps: int = 1):
             fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and e.key != MOE_RANGE]      # phase 9's range on the card
     total_us = sum(device_us(e) for e in kernels)
     kern_us = {k: sum(device_us(e) for e in kernels if k in e.key)
                for k in set(SYMBOLS.values())}
@@ -2663,6 +2686,239 @@ def lockstep_agreement(kernel, oracle) -> dict:
             "max_logit_gap": float((kernel - oracle).abs().max())}
 
 
+# Phase 9: the MoE configs.  config -> layers run.  olmoe-1b-7b runs
+# whole; grok-1-314b at its published widths, cut in depth to what one
+# card's 80 GB holds: a layer is 13.6 GB (12.9 GB of float32 experts),
+# beside 3.2 GB of embedding, 6.5 GB of head and its plan, and a 3.2 GB
+# bf16 copy of an expert weight during a step.  Only the attention
+# projections and the untied head are planned (B1): the router is raw and
+# the experts run as bf16 einsums, as in the reference.
+MOE_DEPTHS = {"olmoe-1b-7b": 16, "grok-1-314b": 4}
+MOE_FORWARD_SIZE = (4, 64)           # olmoe's forward, batch x tokens
+MOE_RANGE = "moe.experts"            # profiler range of the experts' FFN
+
+
+def moe_counted(moe):
+    """Wrap ``moe._dispatch`` so that each call adds its dropped picks and
+    its picks to two device tensors (no host sync); returns (restore,
+    tallies)."""
+    import torch
+    tallies = []
+    dispatch = moe._dispatch
+
+    def counted(xf, eidx, gate, e, k, cap, dtype):
+        buf, dest, wgt = dispatch(xf, eidx, gate, e, k, cap, dtype)
+        tallies.append(torch.stack([(dest == e * cap).sum(),
+                                    torch.tensor(dest.numel(),
+                                                 device=dest.device)]))
+        return buf, dest, wgt
+    moe._dispatch = counted
+
+    def restore():
+        moe._dispatch = dispatch
+    return restore, tallies
+
+
+def moe_experts_profile(eng, dev) -> dict:
+    """torch.profiler over one decode step of a served MoE engine, with the
+    experts' FFN (``moe._experts``: the bf16 weight copies, the einsums,
+    the activation) inside a profiler range: the step's device ms and
+    B1's, and the device ms of the kernels the range launched."""
+    import torch
+    from repro_torch.models import moe
+
+    experts = moe._experts
+
+    def ranged(*args, **kw):
+        with torch.profiler.record_function(MOE_RANGE):
+            return experts(*args, **kw)
+    moe._experts = ranged
+    try:
+        prof, trace = profile_calls(lambda: profile_step(eng, dev))
+    finally:
+        moe._experts = experts
+    experts_us = sum(e.device_time_total for e in trace.events()
+                     if e.name == MOE_RANGE
+                     and str(getattr(e, "device_type", "")).endswith("CPU"))
+    return {"device_ms_per_step": prof["device_ms_per_step"],
+            "b1_ms_per_step": prof["kernel_ms_per_step"].get(
+                SYMBOLS["bw_gemm_fused"], 0.0),
+            "experts_ms_per_step": experts_us / 1e3,
+            "kernel_launches_per_step": prof["kernel_launches_per_step"],
+            "top_kernels": prof["top_kernels"][:6]}
+
+
+def moe_forward(eng, impl, toks, first, dev) -> tuple:
+    """Phase 9 (a): ``lm_apply`` of ``toks`` through a served engine's
+    params (B1's planned, the oracle's raw): B1 launched 4 x layers + 1
+    times a forward and nothing else, the oracle nothing; the greedy
+    tokens equal those of ``first`` (the logits of the first route, or
+    None).  Returns (row, logits, failures)."""
+    import torch
+    from repro_torch.models import transformer as T
+
+    cfg, failures = eng.cfg, []
+    kern = FORWARD_ROUTES[impl]
+    with torch.no_grad():
+        T.lm_apply(eng.params, toks[:, :8], cfg, dev)          # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        logits, aux = T.lm_apply(eng.params, toks, cfg, dev)
+        torch.cuda.synchronize()
+        row = {"host_ms": 1e3 * (time.perf_counter() - t0),
+               "launches": read_counts(), "aux": float(aux),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    want = {name: (4 * cfg.n_layers + 1 if name == kern else 0)
+            for name in KERNELS}
+    if row["launches"] != want:
+        failures.append(f"forward impl={impl}: launches {row['launches']}, "
+                        f"expected {want}")
+    if tuple(logits.shape) != (*toks.shape, cfg.padded_vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        failures.append(f"forward impl={impl}: bad logits "
+                        f"{tuple(logits.shape)}")
+    if first is not None:
+        row["max_logit_gap"] = float((logits.float()
+                                      - first.float()).abs().max())
+        row["tokens_differ"] = int((logits.argmax(-1)
+                                    != first.argmax(-1)).sum())
+        if row["tokens_differ"]:
+            failures.append(f"forward impl={impl}: {row['tokens_differ']} "
+                            f"greedy tokens differ from pallas_fused's")
+    return row, logits, failures
+
+
+def moe_config_phase(dev, log, kind) -> dict:
+    """Phase 9: each config of MOE_DEPTHS at its published widths, params
+    from a seeded torch.Generator, served by ServeEngine (batch 3, 3
+    seeded prompts of 8-24 tokens, DENSE_NEW_TOKENS new tokens, max_len
+    DENSE_MAX_LEN) through pallas_fused and the planes oracle.  B1 is
+    launched 4 x layers + 1 times a step (wq, wk, wv, wo and the untied
+    head) and nothing else; the oracle launches nothing.  Both routes'
+    logits teacher-forced through the served sequences
+    (``lockstep_logits``) must be bit-identical and the served tokens
+    equal: the MoE code and the attention projections' sums are the same
+    on both routes, and no activation is folded into a planned
+    projection.  Logs ms/step, device and B1 ms a step, the experts'
+    device ms a step, peak GB, init and plan seconds, and the share of
+    the oracle's decode picks dropped by capacity; on olmoe-1b-7b also
+    the forward (``moe_forward``)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.api import get_api
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.request import ServeRequest
+
+    out, failures = {}, []
+    for arch, layers in MOE_DEPTHS.items():
+        cfg = get_config(arch).replace(n_layers=layers)
+        free_device_memory()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = get_api(cfg).init(gen, cfg, dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        log(f"[moe] {arch}: {cfg.param_count() / 1e9:.3f} B params "
+            f"({cfg.active_param_count() / 1e9:.3f} B active) drawn in "
+            f"{init_s:.2f} s  ({kind})")
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab_size,
+                                int(rng.integers(8, 25))).tolist()
+                   for _ in range(3)]
+        per_step = 4 * layers + (0 if cfg.tie_embeddings else 1)
+        toks = torch.as_tensor(np.random.default_rng(8).integers(
+            0, cfg.vocab_size, MOE_FORWARD_SIZE), device=dev)
+        runs, seqs, first = {}, None, None
+        for impl in ("pallas_fused", "planes"):
+            free_device_memory()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            eng = ServeEngine(cfg, 3, DENSE_MAX_LEN, quant=spec_of(impl),
+                              params=params, device=dev)
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            reqs = [ServeRequest(i, list(p), DENSE_NEW_TOKENS)
+                    for i, p in enumerate(prompts)]
+            if impl == "planes":
+                restore, tallies = moe_counted(moe)
+            zero_counts()
+            try:
+                stats = eng.run(reqs)
+            finally:
+                if impl == "planes":
+                    restore()
+            run = {"tokens": [r.out for r in reqs], "setup_s": setup_s,
+                   "planned_weights": (eng.plan_stats or {}).get(
+                       "planned_weights", 0),
+                   "steps": stats["engine_steps"],
+                   "ms_per_step": 1e3 * stats["wall_s"]
+                   / stats["engine_steps"],
+                   "launches": read_counts(),
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            kern = FORWARD_ROUTES[impl]
+            want = {name: per_step * run["steps"] if name == kern else 0
+                    for name in KERNELS}
+            if run["launches"] != want:
+                failures.append(f"{arch} impl={impl}: launches "
+                                f"{run['launches']}, expected {want}")
+            if kern and run["planned_weights"] != per_step:
+                failures.append(f"{arch}: {run['planned_weights']} weights "
+                                f"planned, expected {per_step}")
+            if any(len(t) != DENSE_NEW_TOKENS for t in run["tokens"]):
+                failures.append(f"{arch} impl={impl}: a request did not "
+                                f"generate {DENSE_NEW_TOKENS} tokens")
+            if impl == "planes":
+                dropped, picks = (int(v) for v in
+                                  torch.stack(tallies).sum(0).tolist())
+                run["decode_picks"] = picks
+                run["decode_dropped_share"] = dropped / picks
+            if impl == "pallas_fused":
+                run.update(moe_experts_profile(eng, dev))
+                run["experts_share"] = (run["experts_ms_per_step"]
+                                        / max(run["device_ms_per_step"],
+                                              1e-9))
+                seqs = [p + o for p, o in zip(prompts, run["tokens"])]
+            run["lockstep"] = lockstep_logits(eng, seqs, dev)
+            runs[impl] = run
+            log(f"[moe] {arch} ({layers} of {get_config(arch).n_layers} "
+                f"layers) impl={impl}: "
+                f"{json.dumps({k: v for k, v in run.items() if k not in ('tokens', 'lockstep')})}"
+                f"  ({kind})")
+            if arch == "olmoe-1b-7b":
+                row, logits, fails = moe_forward(eng, impl, toks, first, dev)
+                failures += [f"{arch} {f}" for f in fails]
+                first = logits if first is None else first
+                run["forward"] = row
+                log(f"[moe] {arch} forward impl={impl} batch "
+                    f"{MOE_FORWARD_SIZE[0]} x {MOE_FORWARD_SIZE[1]} tokens: "
+                    f"{json.dumps(row)}  ({kind})")
+                del logits
+            del eng
+        del first
+        kernel, oracle = runs["pallas_fused"], runs["planes"]
+        lock = lockstep_agreement(kernel.pop("lockstep"),
+                                  oracle.pop("lockstep"))
+        lock["served_tokens_equal"] = oracle["tokens"] == kernel["tokens"]
+        log(f"[moe] {arch}: the planes oracle against pallas_fused in lock "
+            f"step: {json.dumps(lock)}")
+        if lock["max_logit_gap"] != 0.0 or lock["tokens_differ"] or \
+                not lock["served_tokens_equal"]:
+            failures.append(f"{arch}: the planes oracle differs from "
+                            f"pallas_fused: {json.dumps(lock)}")
+        out[arch] = {"layers": layers, "init_s": init_s,
+                     "per_step": per_step, "oracle": lock, **runs}
+        del params
+    free_device_memory()
+    if failures:
+        raise AssertionError("phase 9: " + "; ".join(failures))
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2837,6 +3093,16 @@ def main(argv=None) -> int:
         f"; peak GB {json.dumps({a: round(r['pallas_fused']['peak_gb'], 2) for a, r in dense.items()})}"
         f"  ({kind})")
 
+    # -- 9. the MoE configs --------------------------------------------------
+    t0 = time.perf_counter()
+    moes = moe_config_phase(dev, log, kind)
+    moe_launches = {a: r["pallas_fused"]["launches"]["bw_gemm_fused"]
+                    for a, r in moes.items()}
+    log(f"[moe] phase 9 in {time.perf_counter() - t0:.1f} s; B1 launches "
+        f"{json.dumps(moe_launches)}"
+        f"; peak GB {json.dumps({a: round(r['pallas_fused']['peak_gb'], 2) for a, r in moes.items()})}"
+        f"  ({kind})")
+
     # -- the kernels line ----------------------------------------------------
     replaces = {"bw_gemm_fused": "src/repro/kernels/bw_gemm.py:215",
                 "bw_gemm": "src/repro/kernels/bw_gemm.py:140",
@@ -2892,6 +3158,8 @@ def main(argv=None) -> int:
         ops_ms = 1e3 * sums["ops"] / INT8_OPS_PER_S
         if name in launches:
             count = launches[name]["stats"]["launches"][name]
+            if name == "bw_gemm_fused":
+                count += sum(moe_launches.values())
         elif name in unfused:
             count = unfused[name]["stats"]["unfused"]["launches"][name]
         else:

@@ -1,6 +1,6 @@
 """Config schema: the model architecture fields the port's decoder-only
-dense family reads, and the four input-shape cells, with the reference's
-names and defaults (``repro.configs.base``)."""
+dense and MoE families read, and the four input-shape cells, with the
+reference's names and defaults (``repro.configs.base``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -19,7 +19,7 @@ def pad_vocab(v: int, multiple: int = 128) -> int:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense (the only family ported so far)
+    family: str                    # dense | moe (the families ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -27,6 +27,15 @@ class ModelConfig:
     d_ff: int
     vocab_size: int                # raw (pre-padding) vocabulary
     head_dim: int = 0              # 0 -> d_model // n_heads
+    # --- MoE ---
+    n_experts: int = 0
+    experts_per_token: int = 0
+    capacity_factor: float = 1.25
+    # 'expert' (EP) or 'mlp' (TP over d_ff): how the reference shards the
+    # experts over a mesh; one device reads nothing of it
+    moe_shard: str = "expert"
+    moe_dispatch_groups: int = 1   # >1: tokens dispatched in groups
+    router_aux_coef: float = 0.01
     # modality frontend (the VLM family's; the dense forward refuses it)
     frontend: Optional[str] = None  # 'vision' | 'audio'
     frontend_tokens: int = 0        # patches / frames per example
@@ -66,8 +75,18 @@ class ModelConfig:
         attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) \
             + self.n_heads * hd * d
         mlp = (3 if self.gated_mlp else 2) * d * self.d_ff
+        if self.n_experts:
+            mlp = mlp * self.n_experts + d * self.n_experts
         emb = self.padded_vocab * d * (1 if self.tie_embeddings else 2)
         return self.n_layers * (attn + mlp) + emb
+
+    def active_param_count(self) -> int:
+        """Parameters a token reaches: k experts' MLPs in place of all."""
+        if not self.n_experts:
+            return self.param_count()
+        dense_like = self.replace(n_experts=0, d_ff=self.d_ff *
+                                  self.experts_per_token)
+        return dense_like.param_count()
 
 
 @dataclasses.dataclass(frozen=True)

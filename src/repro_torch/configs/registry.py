@@ -1,16 +1,20 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig (full or smoke).
 
-The port has the reference's four dense architectures so far, in the
-reference's order; its other six follow with their model families.
+The port has the reference's four dense and two MoE architectures so
+far, in the reference's order; its other four follow with their model
+families.
 """
 from __future__ import annotations
 
 from typing import List
 
-from . import granite_34b, minicpm_2b, nemotron_4_15b, qwen1_5_110b
+from . import (granite_34b, grok_1_314b, minicpm_2b, nemotron_4_15b,
+               olmoe_1b_7b, qwen1_5_110b)
 from .base import ModelConfig
 
 _MODULES = {
+    "olmoe-1b-7b": olmoe_1b_7b,
+    "grok-1-314b": grok_1_314b,
     "minicpm-2b": minicpm_2b,
     "nemotron-4-15b": nemotron_4_15b,
     "qwen1.5-110b": qwen1_5_110b,

@@ -2,7 +2,8 @@
 
 The input is the reference engine's tree as numpy, e.g.
 ``jax.tree.map(np.asarray, unbox(engine.params))``: nested dicts with the
-layers stacked on a leading axis under ``blocks`` ([L, ...]).  The port
+layers stacked on a leading axis under ``blocks`` ([L, ...]; an MoE
+layer's experts [L, e, d, f] and router [L, d, e] too).  The port
 keeps ``blocks`` as a list of per-layer dicts and every other leaf as it
 is, with weights in the reference's [d_in, d_out] layout, so it plans the
 same matrices.  ``w_plan`` records are dropped: the port plans for itself.

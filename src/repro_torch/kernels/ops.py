@@ -1043,11 +1043,24 @@ def quantized_dense(x: torch.Tensor, w: torch.Tensor, spec, *, bias=None,
                                fused=fused, dispatch=dispatch, order=order)
 
 
+# Param-dict names whose "w" never flows through the quantized dense path
+# (raw matmuls, unquantized projections): planning them would carry dead
+# digit planes through every serve step.  The reference's set, families
+# not yet ported included.
+_NO_PLAN_KEYS = frozenset({
+    "router", "frontend_proj",                      # raw matmul / unquantized
+    "mix_w1", "mix_w2", "w_lora1", "w_lora2",       # rwkv6 mixing loras
+    "dt_proj", "x_to_dt", "x_to_bc",                # ssm fp32 projections
+})
+
+
 def plan_params(params, spec, order: Optional[str] = None):
     """Attach a 'w_plan' record next to every dense weight in a param tree.
 
     The tree is nested dicts and lists (the port keeps its layers as a
-    list); every dict holding a 2-D "w" gets a plan.  order: the schedule
+    list); every dict holding a 2-D "w" gets a plan, but a dict whose own
+    key is in ``_NO_PLAN_KEYS`` (the MoE router), as the reference's
+    default ``should_plan`` decides.  order: the schedule
     order; None derives it from the spec's engine (k_major for
     pallas_pipelined, else m_major), as the reference does.  The
     schedules of one weight name across the list's layers are padded to
@@ -1076,7 +1089,8 @@ def plan_params(params, spec, order: Optional[str] = None):
         out = {k: walk(v, path + (k,), groups, layered)
                for k, v in node.items()}
         w = node.get("w")
-        if isinstance(w, torch.Tensor) and w.dim() == 2:
+        if isinstance(w, torch.Tensor) and w.dim() == 2 and \
+                not (path and path[-1] in _NO_PLAN_KEYS):
             out["w_plan"], host = _plan_record(w, spec, not layered, order,
                                                None)
             groups.setdefault(path, []).append((out["w_plan"], host))

@@ -9,7 +9,8 @@ loops are architecture-agnostic:
     decode_step(params, tokens, pos, state, cfg) -> (logits [B,1,V], state)
 
 ``batch`` is a dict: {"tokens": int [B,T], "labels": int [B,T]}.  The
-port has the dense family so far.
+port has the dense and MoE families so far; both run
+``models/transformer.py`` (an MoE block swaps its MLP for the experts).
 """
 from __future__ import annotations
 
@@ -48,6 +49,8 @@ def _lm_init_decode(cfg, batch, max_len, device):
 _FAMILIES: Dict[str, ModelAPI] = {
     "dense": ModelAPI("dense", T.lm_init, _lm_forward, _lm_init_decode,
                       T.lm_decode_step),
+    "moe": ModelAPI("moe", T.lm_init, _lm_forward, _lm_init_decode,
+                    T.lm_decode_step),
 }
 
 

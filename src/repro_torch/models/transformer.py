@@ -1,6 +1,7 @@
-"""Decoder-only dense transformer LM: init, the full-sequence forward,
-prefill, decode-state init and the single-token decode step
-(``repro.models.transformer``).
+"""Decoder-only transformer LM, dense or MoE: init, the full-sequence
+forward, prefill, decode-state init and the single-token decode step
+(``repro.models.transformer``).  A config with ``n_experts`` puts an MoE
+FFN (``models/moe.py``) in each block where the dense family has its MLP.
 
 The reference stacks its layers on a leading axis for ``jax.lax.scan``;
 the port keeps ``params["blocks"]`` as a list of per-layer dicts and
@@ -19,6 +20,7 @@ from repro_torch import resolve_device
 
 from . import attention as A
 from . import layers as L
+from . import moe as M
 
 __all__ = ["lm_init", "lm_apply", "lm_prefill", "lm_decode_step",
            "init_caches", "norm_init", "norm_apply", "mlp_init",
@@ -57,33 +59,49 @@ def mlp_apply(p, x, cfg, dtype=torch.bfloat16):
 
 
 def block_init(gen, cfg, device) -> dict:
-    return {"ln1": norm_init(cfg, device),
-            "attn": A.attn_init(gen, cfg, device),
-            "ln2": norm_init(cfg, device),
-            "mlp": mlp_init(gen, cfg, device)}
+    p = {"ln1": norm_init(cfg, device),
+         "attn": A.attn_init(gen, cfg, device),
+         "ln2": norm_init(cfg, device)}
+    if cfg.n_experts:
+        p["moe"] = M.moe_init(gen, cfg, device)
+    else:
+        p["mlp"] = mlp_init(gen, cfg, device)
+    return p
+
+
+def _ffn(p, x, cfg, dtype):
+    """The block's FFN output on the normed x (an MoE block's aux loss
+    dropped)."""
+    if cfg.n_experts:
+        return M.moe_apply(p["moe"], x, cfg, dtype)[0]
+    return mlp_apply(p["mlp"], x, cfg, dtype)
 
 
 def block_apply(p, x, cfg, positions, dtype=torch.bfloat16):
-    """One block over a whole sequence; returns (x, aux) with the dense
-    family's aux loss, a float32 zero."""
+    """One block over a whole sequence; returns (x, aux), aux the MoE
+    router's load-balance loss, a float32 zero for the dense MLP."""
     h, _ = A.attn_apply(p["attn"], norm_apply(cfg, p["ln1"], x), cfg,
                         positions, dtype)
     x = x + h
-    h = mlp_apply(p["mlp"], norm_apply(cfg, p["ln2"], x), cfg, dtype)
-    return x + h, torch.zeros((), dtype=torch.float32, device=x.device)
+    hn = norm_apply(cfg, p["ln2"], x)
+    if cfg.n_experts:
+        h, aux = M.moe_apply(p["moe"], hn, cfg, dtype)
+    else:
+        h = mlp_apply(p["mlp"], hn, cfg, dtype)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + h, aux
 
 
 def block_decode(p, x, cfg, ck, cv, pos, dtype=torch.bfloat16):
     h, ck, cv = A.attn_decode(p["attn"], norm_apply(cfg, p["ln1"], x), cfg,
                               ck, cv, pos, dtype)
     x = x + h
-    h = mlp_apply(p["mlp"], norm_apply(cfg, p["ln2"], x), cfg, dtype)
-    return x + h, ck, cv
+    return x + _ffn(p, norm_apply(cfg, p["ln2"], x), cfg, dtype), ck, cv
 
 
 def lm_init(gen: torch.Generator, cfg, device) -> dict:
     """Random float32 params from ``gen``, on ``device``."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise ValueError(f"family {cfg.family!r} is not ported yet")
     params = {
         "embed": L.embed_init(gen, cfg.padded_vocab, cfg.d_model, device),
@@ -174,8 +192,7 @@ def lm_prefill(params, tokens, cfg, max_len: int, device=None):
         attn_out, (k, v) = A.attn_apply(layer["attn"], hn, cfg, positions,
                                         dtype)
         x = x + attn_out
-        x = x + mlp_apply(layer["mlp"], norm_apply(cfg, layer["ln2"], x),
-                          cfg, dtype)
+        x = x + _ffn(layer, norm_apply(cfg, layer["ln2"], x), cfg, dtype)
         for kv, out in ((k, ks), (v, vs)):
             out.append(F.pad(kv[:, :, ::rep, :], (0, 0, 0, 0, 0, max_len - t)))
     logits = _logits(params, x[:, -1:, :], cfg, dtype)

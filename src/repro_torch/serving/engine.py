@@ -48,7 +48,7 @@ KERNEL_IMPLS = ("pallas", "pallas_fused", "pallas_sparse",
 
 # Families whose decode state is a recurrence (no position-masked cache):
 # their per-slot state row is re-initialized when a slot is reused.  The
-# port has the dense family only, so this is in place for the others.
+# port has the dense and MoE families, so this is in place for the others.
 RESET_STATE_FAMILIES = ("rwkv", "hybrid")
 
 

@@ -1,8 +1,8 @@
 """The port's dense configs (granite-34b, nemotron-4-15b, qwen1.5-110b
 beside minicpm-2b) against the reference's: their fields, parameter
-counts, registry order and input-shape cells, and decode through the
-port's ``ServeEngine`` against the reference's on each new config's
-smoke size.
+counts, registry order and input-shape cells (the MoE configs' fields
+and counts too), and decode through the port's ``ServeEngine`` against
+the reference's on each new config's smoke size.
 
 Decode runs the reference in a subprocess with XLA's excess precision
 off (test_torch_forward.py's ``run_reference``), and the port with its
@@ -93,8 +93,8 @@ def shared_fields(cfg):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_config_matches_reference(arch, smoke):
     """Every field the port's config has equals the reference's, and so
-    does the parameter count; a field the port lacks is one the dense
-    forward does not read."""
+    do the parameter counts; a field the port lacks is one neither the
+    dense nor the MoE forward reads."""
     tcfg, jcfg = get_config(arch, smoke=smoke), jget_config(arch,
                                                             smoke=smoke)
     names = shared_fields(tcfg)
@@ -103,19 +103,24 @@ def test_config_matches_reference(arch, smoke):
         assert getattr(tcfg, name) == getattr(jcfg, name), name
     assert tcfg.quant is None and jcfg.quant is None
     assert tcfg.param_count() == jcfg.param_count()
+    assert tcfg.active_param_count() == jcfg.active_param_count()
     assert tcfg.resolved_head_dim == jcfg.resolved_head_dim
     assert tcfg.padded_vocab == jcfg.padded_vocab
     lacking = shared_fields(jcfg) - names
     assert not lacking & {"attn_chunk", "frontend", "frontend_tokens",
                           "qkv_bias", "gated_mlp", "act", "norm",
-                          "rope_theta", "tie_embeddings", "logit_softcap"}
+                          "rope_theta", "tie_embeddings", "logit_softcap",
+                          "n_experts", "experts_per_token",
+                          "capacity_factor", "moe_shard",
+                          "moe_dispatch_groups", "router_aux_coef"}
 
 
 def test_registry_follows_reference_order():
     assert ARCHS == [a for a in JARCHS if a in ARCHS]
-    assert set(NEW_ARCHS) | {"minicpm-2b"} == set(ARCHS)
+    assert set(NEW_ARCHS) | {"minicpm-2b", "olmoe-1b-7b",
+                             "grok-1-314b"} == set(ARCHS)
     with pytest.raises(ValueError, match="unknown arch"):
-        get_config("olmoe-1b-7b")
+        get_config("rwkv6-3b")
     assert get_config("qwen1.5-110b", smoke=True, n_layers=3).n_layers == 3
 
 
