@@ -170,13 +170,14 @@ Phases (any failure exits non-zero and prints no result line):
    greedy tokens but at near-ties (B1 launched 7 x 40 x 17 times).  Host
    and device ms a forward (torch.profiler), B1/B2's part of it beside
    B1's bound over the 280 plans (``b1_bound_ms``) and peak GB are
-   logged.  (b) nemotron-4-15b (16 of 32 layers: relu2 in B1's
+   logged.  (b) nemotron-4-15b (4 of 32 layers: relu2 in B1's
    epilogue, LayerNorm, GQA 8, an untied head of 256,000 rows),
-   qwen1.5-110b (4 of 80: the qkv bias in B1's epilogue, a head of
-   152,064 rows) and granite-34b (8 of 88: MQA, wk/wv of 128 rows, a
-   head of 49,152 rows), one at a time, at their published widths, the
-   depth one card's 80 GB holds beside the embedding and the planned
-   head; params from a seeded torch.Generator; each served by
+   qwen1.5-110b (1 of 80: the qkv bias in B1's epilogue, a head of
+   152,064 rows) and granite-34b (2 of 88: MQA, wk/wv of 128 rows, a
+   head of 49,152 rows), one at a time, at their published widths, a
+   quarter of the depth one card's 80 GB holds beside the embedding and
+   the planned head (for the script's time); params from a seeded
+   torch.Generator; each served by
    ServeEngine (batch 3, 3 seeded prompts of 8-24 tokens, 8 new tokens,
    max_len 32) through pallas_fused and the planes oracle (and pallas
    where the MLP folds its activation): B1 launched (6 or 7) x layers +
@@ -212,6 +213,32 @@ Phases (any failure exits non-zero and prints no result line):
    routes' params: 4 x 16 + 1 = 65 B1 launches a forward, none on the
    oracle, equal greedy tokens.  The phase's seconds are logged.
 
+10. The VLM config (``vlm_config_phase``), after phase 9's params are
+   freed: phi-3-vision-4.2b whole (32 layers, d_model 3072, 32 x 96
+   heads, MHA, d_ff 8192, an untied head of 32,128 rows; 3.821 B params
+   beside frontend_proj's 9.4 M), params from a seeded torch.Generator,
+   through pallas_fused and the planes oracle.  frontend_proj, the
+   vision stub's projection, is a bf16 matmul, never planned: B1
+   launched 7 x 32 + 1 = 225 times a decode step or forward and nothing
+   else, the oracle nothing.  (a)
+   Served by ServeEngine on text (batch 3, 3 seeded prompts of 8-24
+   tokens, 8 new, max_len 32): lock-step logits bit-identical, served
+   tokens equal; ms/step, device and B1 ms a step, kernels a step, the
+   head's B1 launch beside its bound and peak GB logged.  (b) The
+   multimodal forward, batch 2 x 1,024 tokens whose positions 0-575 are
+   overwritten by seeded float32 frontend embeddings [2, 576, 3072]:
+   greedy tokens at positions 576-1,023 equal on both routes (phase 8
+   (a)'s gate), finite logits [2, 1024, 32128]; on B1 host, device and
+   B1 ms beside ``b1_bound_ms`` at N=2,048, and a forward with the
+   frontend + 1.0 must change the logits.  (c) On B1, ``lm_prefill`` of
+   one such 1,024-token prompt with its frontend, then 16
+   ``lm_decode_step``s, against ``lm_apply`` over the 1,040 tokens with
+   the same frontend, within PREFILL_LOGIT_ATOL / PREFILL_MEAN_ATOL.  (d)
+   On B1, ``loss_fn`` on (b)'s batch, labels at every position: the
+   masked mean NLL of (b)'s logits over positions 576-1,023 within rtol
+   1e-6, 2 x 448 tokens counted.  The phase's seconds and the script's
+   are logged.
+
 The kernels line gives, per kernel, one layer's seven launches at N=4
 (four 2304x2304, two 5760x2304 and one 2304x5888 products; B7: one
 encode of each plan shape; B8/B9 at T=4 in phase 5's orientations):
@@ -228,7 +255,7 @@ seven).  B7 moves its input and four digit planes and the mask; B8/B9
 their two int8 operands and the output (B8: and its scale).  A line
 before it gives B1, B2, B8 and B9 at N=512.  ``launches`` is the count
 on the kernel's own route: pallas_fused at planes=3 for B1 (with phase
-9's two served MoE configs added), pallas for
+9's two served MoE configs and phase 10's served VLM added), pallas for
 B2, pallas_sparse for B3 and pallas_pipelined for B5.  B4 and B6, the
 unfused twins, serve no engine; after the pallas_sparse and
 pallas_pipelined runs, every planned weight of the served model goes
@@ -2281,10 +2308,11 @@ PREFILL_LOGIT_ATOL, PREFILL_MEAN_ATOL = 4.0, 0.3
 WIDE_NS = (256, 4096)                # the forward's N, for B1/B2 alone
 # config -> layers run.  A planned projection holds its float32 weight
 # and four int8 digit planes, about 8 bytes a parameter, and one card's
-# 80 GB holds this many layers beside the embedding and the planned
-# untied head; widths, heads, vocabulary and activation are the
-# published ones.
-DENSE_DEPTHS = {"nemotron-4-15b": 16, "qwen1.5-110b": 4, "granite-34b": 8}
+# 80 GB holds 16, 4 and 8 layers beside the embedding and the planned
+# untied head; a quarter of that keeps the script inside its time limit
+# with phase 10 (PERF.md §4).  Widths, heads, vocabulary and activation
+# are the published ones.
+DENSE_DEPTHS = {"nemotron-4-15b": 4, "qwen1.5-110b": 1, "granite-34b": 2}
 DENSE_NEW_TOKENS, DENSE_MAX_LEN = 8, 32
 
 
@@ -2466,26 +2494,10 @@ def forward_phase(cfg, params, dev, log, kind) -> dict:
                         f"{what}: {row['tokens_differ']} greedy tokens "
                         f"differ from impl={base_impl}")
             if impl == "pallas_fused" and size == FORWARD_SIZES[0]:
-                row["prefill_decode"] = prefill_decode(planned, toks,
-                                                       logits, rcfg, dev)
-                pd = row["prefill_decode"]
-                if pd["launches"] != {name: layer_calls * pd["calls"]
-                                      if name == kern else 0
-                                      for name in KERNELS}:
-                    failures.append(f"prefill + decode: launches "
-                                    f"{pd['launches']}")
-                if any(v > PREFILL_LOGIT_ATOL for v in pd["margins"]) or \
-                        pd["max_logit_gap"] > PREFILL_LOGIT_ATOL or \
-                        pd["mean_logit_gap"] > PREFILL_MEAN_ATOL:
-                    failures.append(
-                        f"prefill + decode: {pd['tokens_differ']} of "
-                        f"{pd['tokens']} greedy tokens differ from the "
-                        f"forward's (top-2 margins there: "
-                        f"{pd['margins']}), largest logit gap "
-                        f"{pd['max_logit_gap']} (allowed "
-                        f"{PREFILL_LOGIT_ATOL} for both), mean "
-                        f"{pd['mean_logit_gap']} (allowed "
-                        f"{PREFILL_MEAN_ATOL})")
+                row["prefill_decode"] = prefill_decode(
+                    planned, toks, logits, rcfg, dev, PREFILL_TOKENS)
+                failures += prefill_failures(row["prefill_decode"],
+                                             layer_calls, kern)
             del logits
             out[impl, size] = row
             log(f"[forward] {cfg.name} {what} (N={size[0] * size[1]}): "
@@ -2498,22 +2510,24 @@ def forward_phase(cfg, params, dev, log, kind) -> dict:
     return out
 
 
-def prefill_decode(planned, toks, logits, cfg, dev) -> dict:
-    """lm_prefill of the first PREFILL_TOKENS of ``toks``, then
-    lm_decode_step on each later token (teacher-forced), against the
-    forward's ``logits``: greedy tokens at every position from the
-    prefill's last one to the end (those that differ, with the forward's
-    top-2 margin there), the largest and the mean logit gap, launches."""
+def prefill_decode(planned, toks, logits, cfg, dev, prefill,
+                   frontend=None) -> dict:
+    """lm_prefill of the first ``prefill`` tokens of ``toks`` (with the
+    ``frontend`` embeddings, if given), then lm_decode_step on each later
+    token (teacher-forced), against the forward's ``logits``: greedy
+    tokens at every position from the prefill's last one to the end
+    (those that differ, with the forward's top-2 margin there), the
+    largest and the mean logit gap, launches."""
     import torch
     from repro_torch.models import transformer as T
 
     b, t = toks.shape
     zero_counts()
     with torch.no_grad():
-        step, caches = T.lm_prefill(planned, toks[:, :PREFILL_TOKENS], cfg,
-                                    t, dev)
+        step, caches = T.lm_prefill(planned, toks[:, :prefill], cfg, t, dev,
+                                    frontend_embeds=frontend)
         steps = [step]
-        for i in range(PREFILL_TOKENS, t):
+        for i in range(prefill, t):
             step, caches = T.lm_decode_step(
                 planned, toks[:, i:i + 1],
                 torch.full((b,), i, dtype=torch.long, device=dev), caches,
@@ -2522,7 +2536,7 @@ def prefill_decode(planned, toks, logits, cfg, dev) -> dict:
         torch.cuda.synchronize()
     launches = read_counts()
     got = torch.cat(steps, dim=1).float()
-    want = logits[:, PREFILL_TOKENS - 1:].float()
+    want = logits[:, prefill - 1:].float()
     differ = got.argmax(-1) != want.argmax(-1)
     top2 = want.topk(2, dim=-1).values
     margins = (top2[..., 0] - top2[..., 1])[differ]
@@ -2532,6 +2546,28 @@ def prefill_decode(planned, toks, logits, cfg, dev) -> dict:
             "max_logit_gap": float((got - want).abs().max()),
             "mean_logit_gap": float((got - want).abs().mean()),
             "launches": launches}
+
+
+def prefill_failures(pd, per_call, kern) -> list:
+    """What ``prefill_decode``'s result ``pd`` breaks: ``kern`` launched
+    ``per_call`` times a call and no other kernel, tokens differing only
+    at top-2 margins within PREFILL_LOGIT_ATOL, the largest logit gap
+    within PREFILL_LOGIT_ATOL and the mean within PREFILL_MEAN_ATOL."""
+    failures = []
+    if pd["launches"] != {name: per_call * pd["calls"] if name == kern
+                          else 0 for name in KERNELS}:
+        failures.append(f"prefill + decode: launches {pd['launches']}")
+    if any(v > PREFILL_LOGIT_ATOL for v in pd["margins"]) or \
+            pd["max_logit_gap"] > PREFILL_LOGIT_ATOL or \
+            pd["mean_logit_gap"] > PREFILL_MEAN_ATOL:
+        failures.append(
+            f"prefill + decode: {pd['tokens_differ']} of {pd['tokens']} "
+            f"greedy tokens differ from the forward's (top-2 margins "
+            f"there: {pd['margins']}), largest logit gap "
+            f"{pd['max_logit_gap']} (allowed {PREFILL_LOGIT_ATOL} for "
+            f"both), mean {pd['mean_logit_gap']} (allowed "
+            f"{PREFILL_MEAN_ATOL})")
+    return failures
 
 
 def dense_config_phase(dev, log, kind) -> dict:
@@ -2919,6 +2955,252 @@ def moe_config_phase(dev, log, kind) -> dict:
     return out
 
 
+# Phase 10: the VLM config, phi-3-vision-4.2b whole, its frontend stub fed
+# seeded float32 patch embeddings.  (batch, tokens) of the multimodal
+# forward: its first frontend_tokens (576) positions are the frontend's,
+# so N = 2,048 with 448 text positions a row.
+VLM_ARCH = "phi-3-vision-4.2b"
+VLM_FORWARD_SIZE = (2, 1024)
+VLM_DECODE_TOKENS = 16               # (c): decode steps after the prefill
+
+
+def vlm_forward(eng, impl, toks, frontend, first, dev) -> tuple:
+    """Phase 10 (b): ``lm_apply`` of ``toks`` with ``frontend`` through a
+    served engine's params (B1's planned, the oracle's raw): B1 launched
+    7 x layers + 1 times a forward (never for frontend_proj) and nothing
+    else, the oracle nothing; finite logits of the right shape; the
+    greedy tokens at the text positions equal those of ``first`` (the
+    first route's logits, or None).  On B1 also the device ms and B1's
+    (torch.profiler) beside ``b1_bound_ms``, and a forward with the
+    frontend + 1.0, whose logits must change (the reference's
+    test_vlm_frontend_changes_prefix_logits_only_causally).  Returns
+    (row, logits, failures)."""
+    import torch
+    from repro_torch.models import transformer as T
+
+    cfg, failures = eng.cfg, []
+    f = cfg.frontend_tokens
+    kern = FORWARD_ROUTES[impl]
+    what = f"forward impl={impl}"
+
+    def forward(fe=frontend):
+        return T.lm_apply(eng.params, toks, cfg, dev, frontend_embeds=fe)[0]
+    with torch.no_grad():
+        T.lm_apply(eng.params, toks[:, :f], cfg, dev,
+                   frontend_embeds=frontend)                   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        logits = forward()
+        torch.cuda.synchronize()
+        row = {"host_ms": 1e3 * (time.perf_counter() - t0),
+               "launches": read_counts(),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if kern:
+            prof, _ = profile_calls(forward)
+            row["device_ms"] = prof["device_ms_per_step"]
+            row["b1_ms"] = prof["kernel_ms_per_step"].get(SYMBOLS[kern], 0.0)
+            row["b1_bound_ms"] = b1_bound_ms(plan_records(eng.params),
+                                             toks.numel())
+            shifted = forward(frontend + 1.0)
+            row["shifted_max_logit_gap"] = float(
+                (shifted.float() - logits.float()).abs().max())
+            if torch.allclose(shifted.float(), logits.float()):
+                failures.append(f"{what}: the frontend + 1.0 leaves the "
+                                f"logits as they were")
+            del shifted
+    want = {name: (7 * cfg.n_layers + 1 if name == kern else 0)
+            for name in KERNELS}
+    if row["launches"] != want:
+        failures.append(f"{what}: launches {row['launches']}, expected "
+                        f"{want}")
+    if tuple(logits.shape) != (*toks.shape, cfg.padded_vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        failures.append(f"{what}: bad logits {tuple(logits.shape)}")
+    if first is not None:
+        gap = (logits.float() - first.float()).abs()
+        row["max_logit_gap"] = float(gap.max())
+        row["text_max_logit_gap"] = float(gap[:, f:].max())
+        row["text_tokens_differ"] = int(
+            (logits[:, f:].argmax(-1) != first[:, f:].argmax(-1)).sum())
+        if row["text_tokens_differ"]:
+            failures.append(f"{what}: {row['text_tokens_differ']} greedy "
+                            f"tokens at positions {f}-{toks.shape[1] - 1} "
+                            f"differ from pallas_fused's")
+    return row, logits, failures
+
+
+def vlm_loss(eng, toks, labels, frontend, logits, dev) -> tuple:
+    """Phase 10 (d): ``loss_fn`` on the multimodal batch, labels at every
+    position, against the masked mean NLL of the forward's ``logits``
+    over positions >= frontend_tokens (rtol 1e-6), its token count
+    batch x (tokens - frontend_tokens).  Returns (row, failures)."""
+    import torch
+    from repro_torch.models.api import loss_fn
+
+    cfg = eng.cfg
+    f = cfg.frontend_tokens
+    with torch.no_grad():
+        loss, metrics = loss_fn(eng.params, {"tokens": toks, "labels": labels,
+                                             "frontend": frontend}, cfg, dev)
+        lf = logits[:, f:].float()
+        gold = torch.take_along_dim(lf, labels[:, f:, None], dim=-1)[..., 0]
+        want = float((torch.logsumexp(lf, dim=-1) - gold).mean())
+    row = {"loss": float(loss), "masked_nll_of_forward": want,
+           "tokens": float(metrics["tokens"]),
+           "aux": float(metrics["aux_loss"])}
+    failures = []
+    if row["tokens"] != toks.shape[0] * (toks.shape[1] - f):
+        failures.append(f"loss: {row['tokens']} tokens counted, expected "
+                        f"{toks.shape[0] * (toks.shape[1] - f)}")
+    if abs(row["loss"] - want) > 1e-6 * abs(want) or row["aux"] != 0.0:
+        failures.append(f"loss: {json.dumps(row)}: not the forward's masked "
+                        f"mean NLL within rtol 1e-6")
+    return row, failures
+
+
+def vlm_config_phase(dev, log, kind) -> dict:
+    """Phase 10: phi-3-vision-4.2b whole at its published widths (32
+    layers, d_model 3072, 32 x 96 heads, d_ff 8192, an untied head of
+    32,128 rows), params from a seeded torch.Generator, through
+    pallas_fused and the planes oracle.  (a) Served by ServeEngine on text
+    (batch 3, 3 seeded prompts of 8-24 tokens, DENSE_NEW_TOKENS new
+    tokens): B1 launched 7 x 32 + 1 = 225 times a step and nothing else
+    (frontend_proj is neither planned nor quantized), the oracle nothing;
+    both routes' lock-step logits bit-identical and the served tokens
+    equal (no activation is folded); ms/step, device and B1 ms a step,
+    the head's B1 launch beside its bound, kernels a step, peak GB.  (b)
+    The multimodal forward of VLM_FORWARD_SIZE tokens whose first 576
+    positions are overwritten by seeded float32 frontend embeddings
+    (``vlm_forward``).  (c) On B1, lm_prefill of one such prompt, then
+    VLM_DECODE_TOKENS decode steps, against lm_apply over the whole with
+    the same frontend, within phase 8 (a)'s PREFILL_LOGIT_ATOL /
+    PREFILL_MEAN_ATOL.  (d) On B1, loss_fn on (b)'s batch
+    (``vlm_loss``)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.api import get_api
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.request import ServeRequest
+
+    cfg = get_config(VLM_ARCH)
+    f, (b, t) = cfg.frontend_tokens, VLM_FORWARD_SIZE
+    per_step = 7 * cfg.n_layers + 1
+    free_device_memory()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = get_api(cfg).init(gen, cfg, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    log(f"[vlm] {VLM_ARCH}: {cfg.param_count() / 1e9:.3f} B params (and "
+        f"frontend_proj's {cfg.d_model ** 2 / 1e6:.1f} M) drawn in "
+        f"{init_s:.2f} s  ({kind})")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(8, 25)))
+               .tolist() for _ in range(3)]
+    rng = np.random.default_rng(10)
+    toks = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (b, t + VLM_DECODE_TOKENS)), device=dev)
+    frontend = torch.as_tensor(rng.standard_normal(
+        (b, f, cfg.d_model)).astype(np.float32), device=dev)
+    failures, runs, seqs, first = [], {}, None, None
+    for impl in ("pallas_fused", "planes"):
+        free_device_memory()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = ServeEngine(cfg, 3, DENSE_MAX_LEN, quant=spec_of(impl),
+                          params=params, device=dev)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        reqs = [ServeRequest(i, list(p), DENSE_NEW_TOKENS)
+                for i, p in enumerate(prompts)]
+        zero_counts()
+        stats = eng.run(reqs)
+        run = {"tokens": [r.out for r in reqs], "setup_s": setup_s,
+               "planned_weights": (eng.plan_stats or {}).get(
+                   "planned_weights", 0),
+               "steps": stats["engine_steps"],
+               "ms_per_step": 1e3 * stats["wall_s"] / stats["engine_steps"],
+               "launches": read_counts(),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        kern = FORWARD_ROUTES[impl]
+        want = {name: per_step * run["steps"] if name == kern else 0
+                for name in KERNELS}
+        if run["launches"] != want:
+            failures.append(f"impl={impl}: launches {run['launches']}, "
+                            f"expected {want}")
+        if kern and (run["planned_weights"] != per_step
+                     or "w_plan" in eng.params["frontend_proj"]):
+            failures.append(f"{run['planned_weights']} weights planned, "
+                            f"expected {per_step} (frontend_proj not one)")
+        if any(len(q) != DENSE_NEW_TOKENS for q in run["tokens"]):
+            failures.append(f"impl={impl}: a request did not generate "
+                            f"{DENSE_NEW_TOKENS} tokens")
+        if impl == "pallas_fused":
+            prof, trace = profile_calls(lambda: profile_step(eng, dev))
+            run["device_ms_per_step"] = prof["device_ms_per_step"]
+            run["b1_ms_per_step"] = prof["kernel_ms_per_step"].get(
+                SYMBOLS["bw_gemm_fused"], 0.0)
+            run["kernels_per_step"] = prof["kernel_launches_per_step"]
+            run["head_us"], run["b1_events"] = longest_launch_us(
+                trace, SYMBOLS["bw_gemm_fused"])
+            run["head_bound_us"] = 1e3 * b1_bound_ms(
+                [eng.params["lm_head"]["w_plan"]], len(prompts))
+            del trace
+            seqs = [p + o for p, o in zip(prompts, run["tokens"])]
+        run["lockstep"] = lockstep_logits(eng, seqs, dev)
+        shown = {k: v for k, v in run.items()
+                 if k not in ("tokens", "lockstep")}
+        log(f"[vlm] {VLM_ARCH} impl={impl} served: {json.dumps(shown)}  "
+            f"({kind})")
+        run["forward"], logits, fails = vlm_forward(
+            eng, impl, toks[:, :t], frontend, first, dev)
+        failures += fails
+        log(f"[vlm] {VLM_ARCH} forward impl={impl} batch {b} x {t} tokens "
+            f"(N={b * t}, positions 0-{f - 1} the frontend's): "
+            f"{json.dumps(run['forward'])}  ({kind})")
+        if impl == "pallas_fused":
+            first = logits
+            seq, fe = toks[:1], frontend[:1]
+            with torch.no_grad():
+                full, _ = T.lm_apply(eng.params, seq, eng.cfg, dev,
+                                     frontend_embeds=fe)
+            run["prefill_decode"] = prefill_decode(
+                eng.params, seq, full, eng.cfg, dev, t, frontend=fe)
+            del full
+            failures += prefill_failures(run["prefill_decode"], per_step,
+                                         kern)
+            log(f"[vlm] {VLM_ARCH} prefill of {t} tokens (the frontend's "
+                f"{f} first) + {VLM_DECODE_TOKENS} decode steps against the "
+                f"forward: {json.dumps(run['prefill_decode'])}  ({kind})")
+            run["loss"], fails = vlm_loss(eng, toks[:, :t], toks[:, 1:t + 1],
+                                          frontend, logits, dev)
+            failures += fails
+            log(f"[vlm] {VLM_ARCH} loss_fn, positions < {f} masked: "
+                f"{json.dumps(run['loss'])}  ({kind})")
+        del logits, eng
+        runs[impl] = run
+    del first
+    kernel, oracle = runs["pallas_fused"], runs["planes"]
+    lock = lockstep_agreement(kernel.pop("lockstep"), oracle.pop("lockstep"))
+    lock["served_tokens_equal"] = oracle["tokens"] == kernel["tokens"]
+    log(f"[vlm] {VLM_ARCH}: the planes oracle against pallas_fused in lock "
+        f"step: {json.dumps(lock)}")
+    if lock["max_logit_gap"] != 0.0 or lock["tokens_differ"] or \
+            not lock["served_tokens_equal"]:
+        failures.append(f"the planes oracle differs from pallas_fused: "
+                        f"{json.dumps(lock)}")
+    del params
+    free_device_memory()
+    if failures:
+        raise AssertionError("phase 10: " + "; ".join(failures))
+    return {"layers": cfg.n_layers, "init_s": init_s, "per_step": per_step,
+            "oracle": lock, **runs}
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2929,6 +3211,7 @@ def main(argv=None) -> int:
                              "beside the shipped wide B8/B9 kernel at T=512 "
                              "(phase 3); may be given more than once")
     args = parser.parse_args(argv)
+    started = time.perf_counter()
     print(card_line(), flush=True)
     import torch
     if not torch.cuda.is_available():
@@ -3103,6 +3386,16 @@ def main(argv=None) -> int:
         f"; peak GB {json.dumps({a: round(r['pallas_fused']['peak_gb'], 2) for a, r in moes.items()})}"
         f"  ({kind})")
 
+    # -- 10. the VLM config --------------------------------------------------
+    t0 = time.perf_counter()
+    vlm = vlm_config_phase(dev, log, kind)
+    vlm_launches = vlm["pallas_fused"]["launches"]["bw_gemm_fused"]
+    log(f"[vlm] phase 10 in {time.perf_counter() - t0:.1f} s; B1 launches "
+        f"served {vlm_launches}; peak GB "
+        f"{round(vlm['pallas_fused']['peak_gb'], 2)} (B1), "
+        f"{round(vlm['planes']['peak_gb'], 2)} (oracle)  ({kind})")
+    log(f"[total] phases 2-10 in {time.perf_counter() - started:.1f} s")
+
     # -- the kernels line ----------------------------------------------------
     replaces = {"bw_gemm_fused": "src/repro/kernels/bw_gemm.py:215",
                 "bw_gemm": "src/repro/kernels/bw_gemm.py:140",
@@ -3159,7 +3452,7 @@ def main(argv=None) -> int:
         if name in launches:
             count = launches[name]["stats"]["launches"][name]
             if name == "bw_gemm_fused":
-                count += sum(moe_launches.values())
+                count += sum(moe_launches.values()) + vlm_launches
         elif name in unfused:
             count = unfused[name]["stats"]["unfused"]["launches"][name]
         else:

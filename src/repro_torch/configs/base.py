@@ -1,5 +1,5 @@
 """Config schema: the model architecture fields the port's decoder-only
-dense and MoE families read, and the four input-shape cells, with the
+dense, MoE and VLM families read, and the four input-shape cells, with the
 reference's names and defaults (``repro.configs.base``)."""
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ def pad_vocab(v: int, multiple: int = 128) -> int:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | moe (the families ported so far)
+    family: str                    # dense | moe | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -36,7 +36,7 @@ class ModelConfig:
     moe_shard: str = "expert"
     moe_dispatch_groups: int = 1   # >1: tokens dispatched in groups
     router_aux_coef: float = 0.01
-    # modality frontend (the VLM family's; the dense forward refuses it)
+    # modality frontend (the VLM family's stub: precomputed embeddings)
     frontend: Optional[str] = None  # 'vision' | 'audio'
     frontend_tokens: int = 0        # patches / frames per example
     qkv_bias: bool = False

@@ -8,9 +8,12 @@ loops are architecture-agnostic:
     init_decode(cfg, batch, max_len, device)     -> decode-state tree
     decode_step(params, tokens, pos, state, cfg) -> (logits [B,1,V], state)
 
-``batch`` is a dict: {"tokens": int [B,T], "labels": int [B,T]}.  The
-port has the dense and MoE families so far; both run
-``models/transformer.py`` (an MoE block swaps its MLP for the experts).
+``batch`` is a dict: {"tokens": int [B,T], "labels": int [B,T]} plus
+"frontend": [B,F,d_model] for the VLM family (precomputed patch
+embeddings, the modality stub).  The port has the dense, MoE and VLM
+families so far; all three run ``models/transformer.py`` (an MoE block
+swaps its MLP for the experts; a VLM's frontend overwrites the prompt's
+first F positions).
 """
 from __future__ import annotations
 
@@ -38,7 +41,8 @@ def frontend_len(cfg) -> int:
 
 
 def _lm_forward(params, batch, cfg, device=None):
-    return T.lm_apply(params, batch["tokens"], cfg, device)
+    return T.lm_apply(params, batch["tokens"], cfg, device,
+                      frontend_embeds=batch.get("frontend"))
 
 
 def _lm_init_decode(cfg, batch, max_len, device):
@@ -47,11 +51,9 @@ def _lm_init_decode(cfg, batch, max_len, device):
 
 
 _FAMILIES: Dict[str, ModelAPI] = {
-    "dense": ModelAPI("dense", T.lm_init, _lm_forward, _lm_init_decode,
-                      T.lm_decode_step),
-    "moe": ModelAPI("moe", T.lm_init, _lm_forward, _lm_init_decode,
-                    T.lm_decode_step),
-}
+    fam: ModelAPI(fam, T.lm_init, _lm_forward, _lm_init_decode,
+                  T.lm_decode_step)
+    for fam in ("dense", "moe", "vlm")}
 
 
 def get_api(cfg) -> ModelAPI:
@@ -63,16 +65,22 @@ def get_api(cfg) -> ModelAPI:
 
 
 def loss_fn(params, batch, cfg, device=None):
-    """Next-token cross entropy (float32 logits).
+    """Next-token cross entropy (float32 logits), masking the VLM
+    family's modality prefix.
 
     Returns (loss, metrics dict).  ``labels`` are already shifted by the
     data pipeline (labels[t] = tokens[t+1]); positions with label < 0 are
-    masked.  Forward only: the port has no training step yet.  The VLM
-    family's modality-prefix mask comes with that family (ROADMAP A6).
+    masked, and on a ``vlm`` config (only there, as in the reference) the
+    first ``frontend_len(cfg)`` positions too.  Forward only: the port has
+    no training step yet.
     """
     logits, aux = get_api(cfg).forward(params, batch, cfg, device)
     labels = torch.as_tensor(batch["labels"], device=logits.device).long()
     mask = labels >= 0
+    f = frontend_len(cfg) if cfg.family == "vlm" else 0
+    if f:
+        mask = mask & (torch.arange(labels.shape[1],
+                                    device=labels.device) >= f)[None, :]
     labels = torch.clamp_min(labels, 0)
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)

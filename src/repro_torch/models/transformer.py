@@ -1,7 +1,11 @@
-"""Decoder-only transformer LM, dense or MoE: init, the full-sequence
-forward, prefill, decode-state init and the single-token decode step
-(``repro.models.transformer``).  A config with ``n_experts`` puts an MoE
-FFN (``models/moe.py``) in each block where the dense family has its MLP.
+"""Decoder-only transformer LM, dense, MoE or VLM: init, the
+full-sequence forward, prefill, decode-state init and the single-token
+decode step (``repro.models.transformer``).  A config with ``n_experts``
+puts an MoE FFN (``models/moe.py``) in each block where the dense family
+has its MLP.  A config with a ``frontend`` (the VLM family's stub) has a
+``frontend_proj`` whose projection of precomputed patch embeddings
+overwrites the first ``frontend_tokens`` positions of the forward's and
+prefill's token embeddings; decode takes text tokens only.
 
 The reference stacks its layers on a leading axis for ``jax.lax.scan``;
 the port keeps ``params["blocks"]`` as a list of per-layer dicts and
@@ -101,7 +105,7 @@ def block_decode(p, x, cfg, ck, cv, pos, dtype=torch.bfloat16):
 
 def lm_init(gen: torch.Generator, cfg, device) -> dict:
     """Random float32 params from ``gen``, on ``device``."""
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise ValueError(f"family {cfg.family!r} is not ported yet")
     params = {
         "embed": L.embed_init(gen, cfg.padded_vocab, cfg.d_model, device),
@@ -112,6 +116,11 @@ def lm_init(gen: torch.Generator, cfg, device) -> dict:
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.padded_vocab,
                                          device)
+    if cfg.frontend:
+        # the modality stub: a learned projection of the caller's
+        # precomputed patch / frame embeddings
+        params["frontend_proj"] = L.dense_init(gen, cfg.d_model, cfg.d_model,
+                                               device)
     return params
 
 
@@ -135,12 +144,16 @@ def _run_blocks(params, x, cfg, positions, dtype):
     return x, aux
 
 
-def _embed_inputs(params, tokens, cfg, device):
-    """(x [B, T, d], positions [B, T], dtype) for a prompt, on device."""
-    if cfg.frontend:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend!r} frontend belongs to the VLM "
-            f"family, which is not ported yet (ROADMAP queue A6)")
+def _embed_inputs(params, tokens, cfg, device, frontend_embeds=None):
+    """(x [B, T, d], positions [B, T], dtype) for a prompt, on device.
+
+    With a frontend in ``cfg``, ``frontend_embeds`` [B, F, d]
+    (F = ``cfg.frontend_tokens``) go through ``frontend_proj`` as a bf16
+    matmul, never quantized (the reference calls ``dense_apply`` without
+    the config's spec), and overwrite positions [0, F) of the token
+    embeddings; positions stay 0..T-1.  Without one, ``frontend_embeds``
+    is not read, as in the reference.
+    """
     dev = resolve_device(device)
     table = params["embed"]["table"]
     if table.device.type != dev.type or \
@@ -149,7 +162,22 @@ def _embed_inputs(params, tokens, cfg, device):
     dtype = getattr(torch, cfg.dtype)
     tokens = torch.as_tensor(tokens, device=dev)
     x = L.embed_apply(params["embed"], tokens, dtype)
-    b, t, _ = x.shape
+    b, t, d = x.shape
+    if cfg.frontend:
+        f = cfg.frontend_tokens
+        if frontend_embeds is None:
+            raise ValueError(f"{cfg.name}: the {cfg.frontend!r} frontend "
+                             f"needs batch['frontend'] (frontend_embeds) "
+                             f"of shape [{b}, {f}, {d}]")
+        if t < f:
+            raise ValueError(f"{cfg.name}: a prompt of {t} tokens is "
+                             f"shorter than the frontend's {f} positions")
+        fe = torch.as_tensor(frontend_embeds, device=dev)
+        if tuple(fe.shape) != (b, f, d):
+            raise ValueError(f"{cfg.name}: frontend_embeds of shape "
+                             f"{list(fe.shape)}, expected [{b}, {f}, {d}]")
+        fe = L.dense_apply(params["frontend_proj"], fe.to(dtype), dtype)
+        x[:, :f] = fe.to(x.dtype)
     positions = torch.arange(t, device=dev)[None, :].expand(b, t)
     return x, positions, dtype
 
@@ -166,22 +194,28 @@ def _logits(params, x, cfg, dtype):
     return logits
 
 
-def lm_apply(params, tokens, cfg, device=None):
-    """tokens [B, T] -> (logits [B, T, V], aux) on ``device``."""
-    x, positions, dtype = _embed_inputs(params, tokens, cfg, device)
+def lm_apply(params, tokens, cfg, device=None, frontend_embeds=None):
+    """tokens [B, T] -> (logits [B, T, V], aux) on ``device``.  With a
+    frontend in ``cfg``, ``frontend_embeds`` [B, F, d] overwrite the first
+    F positions (``_embed_inputs``)."""
+    x, positions, dtype = _embed_inputs(params, tokens, cfg, device,
+                                        frontend_embeds)
     x, aux = _run_blocks(params, x, cfg, positions, dtype)
     return _logits(params, x, cfg, dtype), aux
 
 
-def lm_prefill(params, tokens, cfg, max_len: int, device=None):
+def lm_prefill(params, tokens, cfg, max_len: int, device=None,
+               frontend_embeds=None):
     """Run the full prompt, return (last-position logits [B, 1, V], caches).
 
     Prefill reuses the full-sequence attention and keeps each layer's K/V
     in the decode layout: the unrepeated heads (the first of each group of
     the repeated ones), padded to ``max_len`` >= T, stacked into
-    init_caches' [L, B, max_len, n_kv, D].
+    init_caches' [L, B, max_len, n_kv, D].  ``frontend_embeds`` as in
+    ``lm_apply``.
     """
-    x, positions, dtype = _embed_inputs(params, tokens, cfg, device)
+    x, positions, dtype = _embed_inputs(params, tokens, cfg, device,
+                                        frontend_embeds)
     t = x.shape[1]
     if max_len < t:
         raise ValueError(f"max_len {max_len} < prompt length {t}")

@@ -351,11 +351,14 @@ def test_prefill_then_decode_continues_the_forward(ref, case):
 
 
 def test_forward_refuses_frontend_and_foreign_device():
+    """A config with a frontend needs its embeddings (the VLM family's
+    stub, tests/test_torch_vlm.py); a short max_len and params on
+    another device are refused."""
     cfg = port_config("minicpm-2b", None)
     gen = torch.Generator().manual_seed(0)
     params = TT.lm_init(gen, cfg, "cpu")
     tokens = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(ValueError, match=r"batch\['frontend'\]"):
         TT.lm_apply(params, tokens, cfg.replace(frontend="vision",
                                                 frontend_tokens=2),
                     device="cpu")

@@ -505,11 +505,12 @@ def test_launcher_serves_each_moe_arch(arch, capsys):
 
 
 def test_other_families_still_refused():
-    """get_api and lm_init take the dense and MoE families; the VLM,
+    """get_api and lm_init take the dense, MoE and VLM families; the
     RWKV, hybrid and encoder-decoder families are not ported."""
     cfg = get_config("olmoe-1b-7b", smoke=True)
     assert get_api(cfg).family == "moe"
-    for family in ("vlm", "rwkv", "hybrid", "encdec"):
+    assert get_api(cfg.replace(family="vlm")).family == "vlm"
+    for family in ("rwkv", "hybrid", "encdec"):
         other = cfg.replace(family=family)
         with pytest.raises(ValueError, match="not ported"):
             get_api(other)
