@@ -108,8 +108,10 @@ Phases (any failure exits non-zero and prints no result line):
    silu pass B8 and B1 280 times each, every other kernel 0.  Logs the
    host seconds to plan the 280 weights with each encoder.
 
-6. The serving stack on the same params (``server_phase``), after
-   ``ops.plan_cache_clear()`` and the earlier phases' engines are freed:
+6. The serving stack on the same params, cut to their first
+   SERVER_DEPTH (20) of 40 layers for the script's time
+   (``server_phase``), after ``ops.plan_cache_clear()`` and the earlier
+   phases' engines are freed:
    8 seeded prompts of 8-24 tokens, 16 new tokens, Poisson arrivals
    (``serving.loadgen``).  (a) ``AsyncServer`` in virtual mode on the
    default ladder's two tiers (fast planes=2, quality planes=4, both
@@ -170,13 +172,13 @@ Phases (any failure exits non-zero and prints no result line):
    greedy tokens but at near-ties (B1 launched 7 x 40 x 17 times).  Host
    and device ms a forward (torch.profiler), B1/B2's part of it beside
    B1's bound over the 280 plans (``b1_bound_ms``) and peak GB are
-   logged.  (b) nemotron-4-15b (4 of 32 layers: relu2 in B1's
+   logged.  (b) nemotron-4-15b (2 of 32 layers: relu2 in B1's
    epilogue, LayerNorm, GQA 8, an untied head of 256,000 rows),
    qwen1.5-110b (1 of 80: the qkv bias in B1's epilogue, a head of
-   152,064 rows) and granite-34b (2 of 88: MQA, wk/wv of 128 rows, a
-   head of 49,152 rows), one at a time, at their published widths, a
-   quarter of the depth one card's 80 GB holds beside the embedding and
-   the planned head (for the script's time); params from a seeded
+   152,064 rows) and granite-34b (1 of 88: MQA, wk/wv of 128 rows, a
+   head of 49,152 rows), one at a time, at their published widths, an
+   eighth of the depth one card's 80 GB holds beside the embedding and
+   the planned head, or one layer (for the script's time); params from a seeded
    torch.Generator; each served by
    ServeEngine (batch 3, 3 seeded prompts of 8-24 tokens, 8 new tokens,
    max_len 32) through pallas_fused and the planes oracle (and pallas
@@ -197,7 +199,7 @@ Phases (any failure exits non-zero and prints no result line):
    experts top-8, d_ff 1024, an untied head of 50,304 rows) and
    grok-1-314b at its published widths (d_model 6144, 48 / 8 heads x 128,
    8 experts top-2, d_ff 32,768, tanh-gelu non-gated experts, soft cap
-   30, a head of 131,072 rows) at 4 of its 64 layers, one at a time,
+   30, a head of 131,072 rows) at 2 of its 64 layers, one at a time,
    params from a seeded torch.Generator, each served by ServeEngine
    (batch 3, 3 seeded prompts of 8-24 tokens, 8 new tokens, max_len 32)
    through pallas_fused and the planes oracle.  Only wq, wk, wv, wo and
@@ -236,8 +238,38 @@ Phases (any failure exits non-zero and prints no result line):
    the same frontend, within PREFILL_LOGIT_ATOL / PREFILL_MEAN_ATOL.  (d)
    On B1, ``loss_fn`` on (b)'s batch, labels at every position: the
    masked mean NLL of (b)'s logits over positions 576-1,023 within rtol
-   1e-6, 2 x 448 tokens counted.  The phase's seconds and the script's
-   are logged.
+   1e-6, 2 x 448 tokens counted.  The phase's seconds are logged.
+
+11. The RWKV config (``rwkv_config_phase``), after phase 10's params are
+   freed: rwkv6-3b whole (32 layers, d_model 2560, 40 heads x 64, d_ff
+   8960, an untied head of 65,536 rows; 3.100 B params), params from a
+   seeded torch.Generator with the seven constant leaves drawn, through
+   pallas_fused and the planes oracle, TF32 off.  Eight weights a layer
+   and the head are planned (the mixing LoRAs are float32 matmuls,
+   mix_w2 an einsum): B1 launched 8 x 32 + 1 = 257 times a decode step
+   or forward and nothing else, the oracle nothing.  (a) Served by
+   ServeEngine (batch 3, 4 seeded prompts of 8-24 tokens, 8 new,
+   max_len 32: the fourth reuses a slot, whose recurrent row is reset):
+   lock-step logits bit-identical, served tokens equal, and on B1 the
+   fourth request's tokens equal to its run alone on a fresh engine;
+   ms/step, device and B1 ms a step, kernels a step, the head's B1
+   launch beside its bound and peak GB logged.  (b) The forward, 2 x
+   1,024 seeded tokens: 257 B1 launches on pallas_fused, none on the
+   oracle, finite logits [2, 1024, 65536], equal greedy tokens; on B1
+   host, device and B1 ms beside ``b1_bound_ms`` (the profiler's raw
+   device events), the recurrence's device ms (one layer's scan at the
+   forward's shapes, profiled alone, times 32) and the rest's, peak GB.  (c) On B1, the forward of
+   256 tokens with ``return_state``, then 16 teacher-forced
+   ``rwkv_lm_decode_step``s, against the forward of all 272: read at 32
+   layers, where the card's shape-ordered float32 sums already part two
+   forwards as far as any broken decode; gated at the first layer of the
+   same params (``RWKV_GATE_DEPTH``), the sound decode within
+   ``RWKV_LOGIT_ATOL`` / ``RWKV_MEAN_ATOL`` and each of three broken
+   decodes (the handed-over shift rows zeroed, the wkv state zeroed, u
+   left out) outside them.  (d) On B1, ``loss_fn`` on (b)'s batch,
+   labels at every position: the forward's mean NLL within rtol 1e-6,
+   2,048 tokens counted.  The phase's seconds and the script's are
+   logged.
 
 The kernels line gives, per kernel, one layer's seven launches at N=4
 (four 2304x2304, two 5760x2304 and one 2304x5888 products; B7: one
@@ -255,7 +287,8 @@ seven).  B7 moves its input and four digit planes and the mask; B8/B9
 their two int8 operands and the output (B8: and its scale).  A line
 before it gives B1, B2, B8 and B9 at N=512.  ``launches`` is the count
 on the kernel's own route: pallas_fused at planes=3 for B1 (with phase
-9's two served MoE configs and phase 10's served VLM added), pallas for
+9's two served MoE configs, phase 10's served VLM and phase 11's two
+served B1 runs added), pallas for
 B2, pallas_sparse for B3 and pallas_pipelined for B5.  B4 and B6, the
 unfused twins, serve no engine; after the pallas_sparse and
 pallas_pipelined runs, every planned weight of the served model goes
@@ -1748,8 +1781,13 @@ def free_device_memory() -> None:
     torch.cuda.empty_cache()
 
 
+# Phase 6's layers: the first half of minicpm-2b's 40, at full width, so
+# that the script stays inside its time limit with phase 11 (PERF.md §4)
+SERVER_DEPTH = 20
+
+
 def server_phase(cfg, params, dev, log, kind) -> dict:
-    """Phase 6: the serving stack on the full-width model, every worker
+    """Phase 6: the serving stack on a full-width model, every worker
     on the one float tree ``params``.
 
     (a) Virtual mode, the default ladder's two tiers (fast planes=2,
@@ -2309,10 +2347,10 @@ WIDE_NS = (256, 4096)                # the forward's N, for B1/B2 alone
 # config -> layers run.  A planned projection holds its float32 weight
 # and four int8 digit planes, about 8 bytes a parameter, and one card's
 # 80 GB holds 16, 4 and 8 layers beside the embedding and the planned
-# untied head; a quarter of that keeps the script inside its time limit
-# with phase 10 (PERF.md §4).  Widths, heads, vocabulary and activation
-# are the published ones.
-DENSE_DEPTHS = {"nemotron-4-15b": 4, "qwen1.5-110b": 1, "granite-34b": 2}
+# untied head; an eighth of that, or one layer, keeps the script inside
+# its time limit with phases 10 and 11 (PERF.md §4).  Widths, heads,
+# vocabulary and activation are the published ones.
+DENSE_DEPTHS = {"nemotron-4-15b": 2, "qwen1.5-110b": 1, "granite-34b": 1}
 DENSE_NEW_TOKENS, DENSE_MAX_LEN = 8, 32
 
 
@@ -2723,13 +2761,14 @@ def lockstep_agreement(kernel, oracle) -> dict:
 
 
 # Phase 9: the MoE configs.  config -> layers run.  olmoe-1b-7b runs
-# whole; grok-1-314b at its published widths, cut in depth to what one
-# card's 80 GB holds: a layer is 13.6 GB (12.9 GB of float32 experts),
-# beside 3.2 GB of embedding, 6.5 GB of head and its plan, and a 3.2 GB
-# bf16 copy of an expert weight during a step.  Only the attention
+# whole; grok-1-314b at its published widths, cut in depth to half of
+# what one card's 80 GB holds (4 layers: a layer is 13.6 GB, 12.9 GB of
+# it float32 experts, beside 3.2 GB of embedding, 6.5 GB of head and its
+# plan, and a 3.2 GB bf16 copy of an expert weight during a step), for
+# the script's time with phase 11.  Only the attention
 # projections and the untied head are planned (B1): the router is raw and
 # the experts run as bf16 einsums, as in the reference.
-MOE_DEPTHS = {"olmoe-1b-7b": 16, "grok-1-314b": 4}
+MOE_DEPTHS = {"olmoe-1b-7b": 16, "grok-1-314b": 2}
 MOE_FORWARD_SIZE = (4, 64)           # olmoe's forward, batch x tokens
 MOE_RANGE = "moe.experts"            # profiler range of the experts' FFN
 
@@ -3201,6 +3240,436 @@ def vlm_config_phase(dev, log, kind) -> dict:
             "oracle": lock, **runs}
 
 
+# Phase 11: the RWKV config.  rwkv6-3b runs whole.  The forward's batch x
+# tokens (N = 2,048); (c)'s prefix, run by the forward with its state, and
+# the decode steps after it; (a)'s prompts, one more than the batch's 3
+# slots, so that the last reuses a slot.
+RWKV_ARCH = "rwkv6-3b"
+RWKV_FORWARD_SIZE = (2, 1024)
+RWKV_PREFIX, RWKV_DECODE_TOKENS = 256, 16
+RWKV_PROMPTS = 4
+# (c)'s gate: forward state + decode against the forward, largest and
+# mean logit gap, on the first RWKV_GATE_DEPTH layers of the full-width
+# params.  The card orders float32 sums by shape, so two forwards of 256
+# and 272 tokens already differ at position 255, and the random weights
+# grow that with depth: at all 32 layers the sound decode's gap (5.5625,
+# mean 0.8215) is the broken ones' (5.22-6.32, 0.84-0.94) and the two
+# forwards' own (4.9375, 0.8270).  At one layer, measured on this seed
+# (NVIDIA H100 80GB HBM3, 700 W): sound 0.1484 / 0.0148; the handed-over
+# shift rows zeroed 3.031 / 0.0963, the wkv state zeroed 3.797 / 0.4905,
+# u left out 0.4385 / 0.0564 (ROADMAP C10)
+RWKV_GATE_DEPTH = 1
+RWKV_LOGIT_ATOL, RWKV_MEAN_ATOL = 0.3, 0.03
+RWKV_BROKEN = ("shift", "wkv", "u")
+
+
+def rwkv_draw_constants(params, gen) -> None:
+    """Replace, in place, the leaves rwkv_lm_init sets to constants by
+    seeded draws of the same shapes, so that every parameter moves the
+    logits: mu_x, mu_base, mu_k, mu_r ~ U(0, 1), u ~ U(-0.5, 1), w0 ~
+    U(-6, -1), ln_x_bias ~ U(-0.5, 0.5) (tests/test_torch_rwkv.py draws
+    from the same distributions)."""
+    for blk in params["blocks"]:
+        tm, cm = blk["tm"], blk["cm"]
+        for tree, key, lo, hi in ((tm, "mu_x", 0.0, 1.0),
+                                  (tm, "mu_base", 0.0, 1.0),
+                                  (tm, "u", -0.5, 1.0),
+                                  (tm, "w0", -6.0, -1.0),
+                                  (tm, "ln_x_bias", -0.5, 0.5),
+                                  (cm, "mu_k", 0.0, 1.0),
+                                  (cm, "mu_r", 0.0, 1.0)):
+            tree[key].uniform_(lo, hi, generator=gen)
+
+
+def raw_profile(fn) -> dict:
+    """torch.profiler, device activity only, over one fn() call (the
+    caller has warmed it up), read from its raw kineto events: a forward
+    of the RWKV family launches some 235,000 kernels, too many to record
+    host ops for or to parse into the profiler's Python events in the
+    script's time.  The device ms of every device event (kernels, copies,
+    sets), each SYMBOLS kernel's ms, the device event count."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def ns(e):
+        f = getattr(e, "duration_ns", None)
+        return f() if f is not None else 1000 * e.duration_us()
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device = [(e.name(), ns(e)) for e in prof.profiler.kineto_results.events()
+              if str(e.device_type()).endswith("CUDA")]
+    return {"device_ms": sum(d for _, d in device) / 1e6,
+            "kernels": len(device),
+            "kernel_ms": {k: sum(d for n, d in device if k in n) / 1e6
+                          for k in set(SYMBOLS.values())}}
+
+
+def rwkv_forward(eng, impl, toks, first, dev) -> tuple:
+    """Phase 11 (b): ``api.forward`` of ``toks`` through a served engine's
+    params (B1's planned, the oracle's raw): B1 launched 8 x layers + 1
+    times and nothing else, the oracle nothing; finite logits of the
+    right shape; greedy tokens equal to those of ``first`` (the first
+    route's logits, or None).  On B1 also, from torch.profiler over one
+    more forward (``raw_profile``), the device ms and B1's beside
+    ``b1_bound_ms``; and the recurrence's: one layer's ``_wkv_scan`` at
+    the forward's shapes, profiled alone (its work does not depend on the
+    values), times the layers.  Returns (row, logits, failures)."""
+    import torch
+    from repro_torch.models import rwkv6 as R
+
+    cfg, failures = eng.cfg, []
+    kern = FORWARD_ROUTES[impl]
+    what = f"forward impl={impl}"
+
+    def forward():
+        return eng.api.forward(eng.params, {"tokens": toks}, cfg, dev)[0]
+    with torch.no_grad():
+        eng.api.forward(eng.params, {"tokens": toks[:, :8]}, cfg,
+                        dev)                                    # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        logits = forward()
+        torch.cuda.synchronize()
+        row = {"host_ms": 1e3 * (time.perf_counter() - t0),
+               "launches": read_counts(),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if kern:
+            t0 = time.perf_counter()
+            prof = raw_profile(forward)
+            row["device_ms"] = prof["device_ms"]
+            row["b1_ms"] = prof["kernel_ms"][SYMBOLS[kern]]
+            row["b1_bound_ms"] = b1_bound_ms(plan_records(eng.params),
+                                             toks.numel())
+            row["kernels"] = prof["kernels"]
+            hs = cfg.rwkv_head_size
+            gen = torch.Generator(device=dev).manual_seed(1)
+            r, k, v, w = (torch.rand((*toks.shape, cfg.d_model // hs, hs),
+                                     generator=gen, device=dev)
+                          for _ in range(4))
+            s0 = torch.zeros((toks.shape[0], cfg.d_model // hs, hs, hs),
+                             device=dev)
+            u = eng.params["blocks"][0]["tm"]["u"]
+            row["scan_ms"] = cfg.n_layers * raw_profile(
+                lambda: R._wkv_scan(r, k, v, w, u, s0))["device_ms"]
+            row["other_ms"] = row["device_ms"] - row["b1_ms"] - \
+                row["scan_ms"]
+            row["profile_s"] = time.perf_counter() - t0
+            del r, k, v, w, s0
+    want = {name: (8 * cfg.n_layers + 1 if name == kern else 0)
+            for name in KERNELS}
+    if row["launches"] != want:
+        failures.append(f"{what}: launches {row['launches']}, expected "
+                        f"{want}")
+    if tuple(logits.shape) != (*toks.shape, cfg.padded_vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        failures.append(f"{what}: bad logits {tuple(logits.shape)}")
+    if first is not None:
+        row["max_logit_gap"] = float((logits.float()
+                                      - first.float()).abs().max())
+        row["tokens_differ"] = int((logits.argmax(-1)
+                                    != first.argmax(-1)).sum())
+        if row["tokens_differ"]:
+            failures.append(f"{what}: {row['tokens_differ']} greedy tokens "
+                            f"differ from pallas_fused's")
+    return row, logits, failures
+
+
+def rwkv_handoff(cfg, params, toks, prefix, dev, variants) -> dict:
+    """Phase 11 (c): ``rwkv_lm_apply`` over ``toks``' first ``prefix``
+    tokens with ``return_state``, then ``rwkv_lm_decode_step`` on each
+    later token (teacher-forced) from that state, against
+    ``rwkv_lm_apply`` over all of ``toks``, once a variant: None is the
+    sound decode; "shift" zeroes the handed-over shift rows, "wkv" the
+    handed-over wkv state, "u" leaves the bonus out of the decode steps
+    (what the gate must catch).  Per variant: tokens differing, their top-2 margins, the
+    largest and the mean logit gap and, at the prefix's last position
+    (two forwards, of ``prefix`` tokens and of all), the largest gap;
+    the launches of the prefix's forward and the decode steps."""
+    import torch
+    from repro_torch.models import rwkv6 as R
+
+    t = toks.shape[1]
+    with torch.no_grad():
+        want = R.rwkv_lm_apply(params, toks, cfg, device=dev)[0][
+            :, prefix - 1:].float()
+    top2 = want.topk(2, dim=-1).values
+    out = {}
+    for broken in variants:
+        p = params
+        if broken == "u":
+            p = dict(params, blocks=[
+                dict(blk, tm=dict(blk["tm"], u=torch.zeros_like(
+                    blk["tm"]["u"]))) for blk in params["blocks"]])
+        zero_counts()
+        with torch.no_grad():
+            step, state = R.rwkv_lm_apply(params, toks[:, :prefix], cfg,
+                                          return_state=True, device=dev)
+            steps = [step[:, -1:]]
+            if broken in ("shift", "wkv"):
+                keys = ("shift_tm", "shift_cm") if broken == "shift" \
+                    else ("wkv",)
+                state = {k: (torch.zeros_like(v) if k in keys else v)
+                         for k, v in state.items()}
+            for i in range(prefix, t):
+                step, state = R.rwkv_lm_decode_step(p, toks[:, i:i + 1],
+                                                    None, state, cfg)
+                steps.append(step)
+            torch.cuda.synchronize()
+        got = torch.cat(steps, dim=1).float()
+        gap = (got - want).abs()
+        differ = got.argmax(-1) != want.argmax(-1)
+        out[broken] = {
+            "calls": 1 + t - prefix, "tokens": int(differ.numel()),
+            "tokens_differ": int(differ.sum()),
+            "margins": [round(float(v), 4)
+                        for v in (top2[..., 0] - top2[..., 1])[differ]],
+            "max_logit_gap": float(gap.max()),
+            "mean_logit_gap": float(gap.mean()),
+            "forwards_max_gap": float(gap[:, 0].max()),
+            "launches": read_counts()}
+    return out
+
+
+def rwkv_gate_failures(sound, broken) -> list:
+    """(c)'s gate: the sound decode within RWKV_LOGIT_ATOL (largest gap,
+    and the top-2 margin of any token flipped) and RWKV_MEAN_ATOL (mean);
+    each broken decode outside it."""
+    failures = []
+    if any(v > RWKV_LOGIT_ATOL for v in sound["margins"]) or \
+            sound["max_logit_gap"] > RWKV_LOGIT_ATOL or \
+            sound["mean_logit_gap"] > RWKV_MEAN_ATOL:
+        failures.append(
+            f"forward state + decode: {sound['tokens_differ']} of "
+            f"{sound['tokens']} greedy tokens differ from the forward's "
+            f"(top-2 margins there: {sound['margins']}), largest logit gap "
+            f"{sound['max_logit_gap']} (allowed {RWKV_LOGIT_ATOL}), mean "
+            f"{sound['mean_logit_gap']} (allowed {RWKV_MEAN_ATOL})")
+    for name, row in broken.items():
+        if row["max_logit_gap"] <= RWKV_LOGIT_ATOL and \
+                row["mean_logit_gap"] <= RWKV_MEAN_ATOL:
+            failures.append(f"the decode broken by {name!r} passes the "
+                            f"gate: largest {row['max_logit_gap']}, mean "
+                            f"{row['mean_logit_gap']}")
+    return failures
+
+
+def rwkv_loss(eng, toks, labels, logits, dev) -> tuple:
+    """Phase 11 (d): ``loss_fn`` on (b)'s batch, labels at every position,
+    against the mean NLL of the forward's ``logits`` (rtol 1e-6), every
+    position counted.  Returns (row, failures)."""
+    import torch
+    from repro_torch.models.api import loss_fn
+
+    with torch.no_grad():
+        loss, metrics = loss_fn(eng.params, {"tokens": toks,
+                                             "labels": labels}, eng.cfg, dev)
+        lf = logits.float()
+        gold = torch.take_along_dim(lf, labels[..., None], dim=-1)[..., 0]
+        want = float((torch.logsumexp(lf, dim=-1) - gold).mean())
+    row = {"loss": float(loss), "nll_of_forward": want,
+           "tokens": float(metrics["tokens"]),
+           "aux": float(metrics["aux_loss"])}
+    failures = []
+    if row["tokens"] != toks.numel():
+        failures.append(f"loss: {row['tokens']} tokens counted, expected "
+                        f"{toks.numel()}")
+    if abs(row["loss"] - want) > 1e-6 * abs(want) or row["aux"] != 0.0:
+        failures.append(f"loss: {json.dumps(row)}: not the forward's mean "
+                        f"NLL within rtol 1e-6")
+    return row, failures
+
+
+def rwkv_config_phase(dev, log, kind) -> dict:
+    """Phase 11: rwkv6-3b whole at its published widths (32 layers,
+    d_model 2560, 40 heads x 64, d_ff 8960, an untied head of 65,536
+    rows), params from a seeded torch.Generator with the constant leaves
+    drawn (``rwkv_draw_constants``), through pallas_fused and the planes
+    oracle.  Eight weights a layer and the head are planned; the mixing
+    LoRAs are float32 matmuls and mix_w2 an einsum, never planned: B1
+    launched 8 x 32 + 1 = 257 times a decode step or forward and nothing
+    else, the oracle nothing.  (a) Served by ServeEngine (batch 3,
+    RWKV_PROMPTS seeded prompts of 8-24 tokens, DENSE_NEW_TOKENS new
+    tokens; the last request reuses a slot, whose recurrent row is
+    reset): both routes' lock-step logits bit-identical and the served
+    tokens equal; on B1 the request in the reused slot emits the tokens
+    it emits alone on a fresh engine; ms/step, device and B1 ms a step,
+    the head's B1 launch beside its bound, kernels a step, peak GB.  (b)
+    The forward of RWKV_FORWARD_SIZE seeded tokens (``rwkv_forward``).
+    (c) On B1, the forward over RWKV_PREFIX tokens with its state, then
+    RWKV_DECODE_TOKENS decode steps, against the forward over the whole
+    (``rwkv_handoff``): read at all 32 layers, gated at RWKV_GATE_DEPTH
+    (within RWKV_LOGIT_ATOL / RWKV_MEAN_ATOL, the three broken decodes
+    outside them).  (d) On B1, loss_fn on (b)'s batch (``rwkv_loss``)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.api import get_api
+    from repro_torch.serving.engine import ServeEngine, state_leaves
+    from repro_torch.serving.request import ServeRequest
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("phase 11: TF32 is on for float32 matmuls; the "
+                             "RWKV LoRAs and scan must run in float32")
+    cfg = get_config(RWKV_ARCH)
+    (b, t), p = RWKV_FORWARD_SIZE, RWKV_PREFIX
+    per_step = 8 * cfg.n_layers + 1
+    free_device_memory()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = get_api(cfg).init(gen, cfg, dev)
+    rwkv_draw_constants(params, gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in state_leaves(params))
+    log(f"[rwkv] {RWKV_ARCH}: {n_params / 1e9:.3f} B params "
+        f"(param_count {cfg.param_count() / 1e9:.3f} B) drawn in "
+        f"{init_s:.2f} s  ({kind})")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(8, 25)))
+               .tolist() for _ in range(RWKV_PROMPTS)]
+    rng = np.random.default_rng(11)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, t + 1)),
+                           device=dev)
+    failures, runs, seqs, first = [], {}, None, None
+    for impl in ("pallas_fused", "planes"):
+        kern = FORWARD_ROUTES[impl]
+        free_device_memory()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = ServeEngine(cfg, 3, DENSE_MAX_LEN, quant=spec_of(impl),
+                          params=params, device=dev)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        reqs = [ServeRequest(i, list(q), DENSE_NEW_TOKENS)
+                for i, q in enumerate(prompts)]
+        zero_counts()
+        stats = eng.run(reqs)
+        run = {"tokens": [r.out for r in reqs], "setup_s": setup_s,
+               "planned_weights": (eng.plan_stats or {}).get(
+                   "planned_weights", 0),
+               "steps": stats["engine_steps"],
+               "ms_per_step": 1e3 * stats["wall_s"] / stats["engine_steps"],
+               "launches": read_counts(),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        want = {name: per_step * run["steps"] if name == kern else 0
+                for name in KERNELS}
+        if run["launches"] != want:
+            failures.append(f"impl={impl}: launches {run['launches']}, "
+                            f"expected {want}")
+        lora = eng.params["blocks"][0]["tm"]
+        if kern and (run["planned_weights"] != per_step or any(
+                "w_plan" in lora[k] for k in ("mix_w1", "w_lora1",
+                                              "w_lora2"))):
+            failures.append(f"{run['planned_weights']} weights planned, "
+                            f"expected {per_step} (the LoRAs not among "
+                            f"them)")
+        if any(len(q) != DENSE_NEW_TOKENS for q in run["tokens"]):
+            failures.append(f"impl={impl}: a request did not generate "
+                            f"{DENSE_NEW_TOKENS} tokens")
+        if impl == "pallas_fused":
+            prof, trace = profile_calls(lambda: profile_step(eng, dev))
+            run["device_ms_per_step"] = prof["device_ms_per_step"]
+            run["b1_ms_per_step"] = prof["kernel_ms_per_step"].get(
+                SYMBOLS["bw_gemm_fused"], 0.0)
+            run["kernels_per_step"] = prof["kernel_launches_per_step"]
+            run["head_us"], run["b1_events"] = longest_launch_us(
+                trace, SYMBOLS["bw_gemm_fused"])
+            run["head_bound_us"] = 1e3 * b1_bound_ms(
+                [eng.params["head"]["w_plan"]], eng.batch)
+            del trace
+            seqs = [q + o for q, o in zip(prompts, run["tokens"])]
+        run["lockstep"] = lockstep_logits(eng, seqs, dev)
+        shown = {k: v for k, v in run.items()
+                 if k not in ("tokens", "lockstep")}
+        log(f"[rwkv] {RWKV_ARCH} impl={impl} served: {json.dumps(shown)}  "
+            f"({kind})")
+        run["forward"], logits, fails = rwkv_forward(eng, impl, toks[:, :t],
+                                                     first, dev)
+        failures += fails
+        log(f"[rwkv] {RWKV_ARCH} forward impl={impl} batch {b} x {t} tokens "
+            f"(N={b * t}): {json.dumps(run['forward'])}  ({kind})")
+        if impl == "pallas_fused":
+            first = logits
+            seq = toks[:, :p + RWKV_DECODE_TOKENS]
+            depth = RWKV_GATE_DEPTH
+            whole = rwkv_handoff(eng.cfg, eng.params, seq, p, dev, (None,))
+            gated = rwkv_handoff(
+                eng.cfg.replace(n_layers=depth),
+                dict(eng.params, blocks=eng.params["blocks"][:depth]), seq,
+                p, dev, (None,) + RWKV_BROKEN)
+            for n, row in ((per_step, whole[None]),
+                           *((8 * depth + 1, r) for r in gated.values())):
+                if row["launches"] != {name: n * row["calls"] if name == kern
+                                       else 0 for name in KERNELS}:
+                    failures.append(f"forward state + decode: launches "
+                                    f"{row['launches']}, expected {n} a "
+                                    f"call")
+            failures += rwkv_gate_failures(
+                gated[None], {k: gated[k] for k in RWKV_BROKEN})
+            run["state_decode"] = {
+                f"{cfg.n_layers}_layers": whole[None],
+                f"{depth}_layer": {str(k): {key: r[key] for key in (
+                    "tokens_differ", "max_logit_gap", "mean_logit_gap",
+                    "forwards_max_gap")} for k, r in gated.items()}}
+            log(f"[rwkv] {RWKV_ARCH} forward of {p} tokens with its state + "
+                f"{RWKV_DECODE_TOKENS} decode steps against the forward "
+                f"(gated at {depth} layer(s): largest {RWKV_LOGIT_ATOL}, "
+                f"mean {RWKV_MEAN_ATOL}): "
+                f"{json.dumps(run['state_decode'])}  ({kind})")
+            run["loss"], fails = rwkv_loss(eng, toks[:, :t], toks[:, 1:t + 1],
+                                           logits, dev)
+            failures += fails
+            log(f"[rwkv] {RWKV_ARCH} loss_fn, labels at every position: "
+                f"{json.dumps(run['loss'])}  ({kind})")
+        del logits, eng
+        if impl == "pallas_fused":
+            # the request served in the reused slot, alone on a fresh engine
+            free_device_memory()
+            last = RWKV_PROMPTS - 1
+            fresh = ServeEngine(cfg, 3, DENSE_MAX_LEN, quant=spec_of(impl),
+                                params=params, device=dev)
+            alone = ServeRequest(last, list(prompts[last]), DENSE_NEW_TOKENS)
+            zero_counts()
+            fresh_stats = fresh.run([alone])
+            run["fresh"] = {"tokens": alone.out,
+                            "steps": fresh_stats["engine_steps"],
+                            "launches": read_counts()}
+            if run["fresh"]["launches"] != {
+                    name: per_step * run["fresh"]["steps"] if name == kern
+                    else 0 for name in KERNELS}:
+                failures.append(f"fresh engine: launches "
+                                f"{run['fresh']['launches']}")
+            if alone.out != run["tokens"][last]:
+                failures.append(f"request {last} in a reused slot emitted "
+                                f"{run['tokens'][last]}, alone on a fresh "
+                                f"engine {alone.out}")
+            log(f"[rwkv] {RWKV_ARCH} impl={impl}: request {last} in a "
+                f"reused slot {run['tokens'][last]}, alone on a fresh "
+                f"engine {alone.out}  ({kind})")
+            del fresh
+        runs[impl] = run
+    del first
+    kernel, oracle = runs["pallas_fused"], runs["planes"]
+    lock = lockstep_agreement(kernel.pop("lockstep"), oracle.pop("lockstep"))
+    lock["served_tokens_equal"] = oracle["tokens"] == kernel["tokens"]
+    log(f"[rwkv] {RWKV_ARCH}: the planes oracle against pallas_fused in "
+        f"lock step: {json.dumps(lock)}")
+    if lock["max_logit_gap"] != 0.0 or lock["tokens_differ"] or \
+            not lock["served_tokens_equal"]:
+        failures.append(f"the planes oracle differs from pallas_fused: "
+                        f"{json.dumps(lock)}")
+    del params
+    free_device_memory()
+    if failures:
+        raise AssertionError("phase 11: " + "; ".join(failures))
+    return {"layers": cfg.n_layers, "init_s": init_s, "per_step": per_step,
+            "oracle": lock, **runs}
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3353,7 +3822,9 @@ def main(argv=None) -> int:
 
     # -- 6. the serving stack: tiers, the async server, failover -----------
     t0 = time.perf_counter()
-    srv = server_phase(cfg, params, dev, log, kind)
+    srv = server_phase(cfg.replace(n_layers=SERVER_DEPTH),
+                       dict(params, blocks=params["blocks"][:SERVER_DEPTH]),
+                       dev, log, kind)
     log(f"[server] phase 6 in {time.perf_counter() - t0:.1f} s; B1 "
         f"launches in the virtual run {srv['virtual_launches']['bw_gemm_fused']}"
         f"; peak {srv['server_peak_gb']:.2f} GB  ({kind})")
@@ -3394,7 +3865,17 @@ def main(argv=None) -> int:
         f"served {vlm_launches}; peak GB "
         f"{round(vlm['pallas_fused']['peak_gb'], 2)} (B1), "
         f"{round(vlm['planes']['peak_gb'], 2)} (oracle)  ({kind})")
-    log(f"[total] phases 2-10 in {time.perf_counter() - started:.1f} s")
+
+    # -- 11. the RWKV config -------------------------------------------------
+    t0 = time.perf_counter()
+    rwkv = rwkv_config_phase(dev, log, kind)
+    served = rwkv["pallas_fused"]
+    rwkv_launches = served["launches"]["bw_gemm_fused"] + \
+        served["fresh"]["launches"]["bw_gemm_fused"]
+    log(f"[rwkv] phase 11 in {time.perf_counter() - t0:.1f} s; B1 launches "
+        f"served {rwkv_launches}; peak GB {round(served['peak_gb'], 2)} "
+        f"(B1), {round(rwkv['planes']['peak_gb'], 2)} (oracle)  ({kind})")
+    log(f"[total] phases 2-11 in {time.perf_counter() - started:.1f} s")
 
     # -- the kernels line ----------------------------------------------------
     replaces = {"bw_gemm_fused": "src/repro/kernels/bw_gemm.py:215",
@@ -3452,7 +3933,8 @@ def main(argv=None) -> int:
         if name in launches:
             count = launches[name]["stats"]["launches"][name]
             if name == "bw_gemm_fused":
-                count += sum(moe_launches.values()) + vlm_launches
+                count += sum(moe_launches.values()) + vlm_launches + \
+                    rwkv_launches
         elif name in unfused:
             count = unfused[name]["stats"]["unfused"]["launches"][name]
         else:

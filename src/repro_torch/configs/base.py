@@ -1,5 +1,5 @@
-"""Config schema: the model architecture fields the port's decoder-only
-dense, MoE and VLM families read, and the four input-shape cells, with the
+"""Config schema: the model architecture fields the port's dense, MoE,
+VLM and RWKV families read, and the four input-shape cells, with the
 reference's names and defaults (``repro.configs.base``)."""
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ def pad_vocab(v: int, multiple: int = 128) -> int:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | moe | vlm
+    family: str                    # dense | moe | vlm | rwkv
     n_layers: int
     d_model: int
     n_heads: int
@@ -36,6 +36,8 @@ class ModelConfig:
     moe_shard: str = "expert"
     moe_dispatch_groups: int = 1   # >1: tokens dispatched in groups
     router_aux_coef: float = 0.01
+    # --- RWKV ---
+    rwkv_head_size: int = 0
     # modality frontend (the VLM family's stub: precomputed embeddings)
     frontend: Optional[str] = None  # 'vision' | 'audio'
     frontend_tokens: int = 0        # patches / frames per example
@@ -51,6 +53,8 @@ class ModelConfig:
     attn_chunk: int = 2048         # switch to flash-chunked above this seq
     # quantized-GEMM configuration; None runs the bf16 matmul path
     quant: Optional[QuantSpec] = None
+    # long-context support (sub-quadratic sequence mixing)
+    subquadratic: bool = False
 
     def quant_spec(self) -> Optional[QuantSpec]:
         """The QuantSpec the model layers execute under (None: bf16)."""
@@ -70,10 +74,14 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
     def param_count(self) -> int:
-        """Parameter count (embeddings + blocks)."""
+        """Approximate parameter count (embeddings + blocks), as the
+        reference counts it: an RWKV block's mixing stands at 6 d x d
+        (no LoRA, decay or norm counted)."""
         d, hd = self.d_model, self.resolved_head_dim
         attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) \
             + self.n_heads * hd * d
+        if self.family == "rwkv":
+            attn = 5 * d * d + d * d  # r,k,v,w(g) projections + out
         mlp = (3 if self.gated_mlp else 2) * d * self.d_ff
         if self.n_experts:
             mlp = mlp * self.n_experts + d * self.n_experts

@@ -1,7 +1,7 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig (full or smoke).
 
-The port has the reference's four dense, two MoE and one VLM
-architectures so far, in the reference's order; its other three follow
+The port has the reference's RWKV, four dense, two MoE and one VLM
+architectures so far, in the reference's order; its other two follow
 with their model families.
 """
 from __future__ import annotations
@@ -9,10 +9,11 @@ from __future__ import annotations
 from typing import List
 
 from . import (granite_34b, grok_1_314b, minicpm_2b, nemotron_4_15b,
-               olmoe_1b_7b, phi_3_vision_4_2b, qwen1_5_110b)
+               olmoe_1b_7b, phi_3_vision_4_2b, qwen1_5_110b, rwkv6_3b)
 from .base import ModelConfig
 
 _MODULES = {
+    "rwkv6-3b": rwkv6_3b,
     "olmoe-1b-7b": olmoe_1b_7b,
     "grok-1-314b": grok_1_314b,
     "phi-3-vision-4.2b": phi_3_vision_4_2b,

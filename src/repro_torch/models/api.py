@@ -10,10 +10,13 @@ loops are architecture-agnostic:
 
 ``batch`` is a dict: {"tokens": int [B,T], "labels": int [B,T]} plus
 "frontend": [B,F,d_model] for the VLM family (precomputed patch
-embeddings, the modality stub).  The port has the dense, MoE and VLM
-families so far; all three run ``models/transformer.py`` (an MoE block
-swaps its MLP for the experts; a VLM's frontend overwrites the prompt's
-first F positions).
+embeddings, the modality stub).  The port has the dense, MoE, VLM and
+RWKV families so far.  The first three run ``models/transformer.py`` (an
+MoE block swaps its MLP for the experts; a VLM's frontend overwrites the
+prompt's first F positions); the RWKV family runs ``models/rwkv6.py``,
+whose decode state is a recurrence, the same size at any ``max_len``.
+The hybrid and encoder-decoder families are not ported: ``get_api``
+raises for them.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from typing import Callable, Dict
 
 import torch
 
+from . import rwkv6 as R
 from . import transformer as T
 
 __all__ = ["ModelAPI", "get_api", "loss_fn", "frontend_len"]
@@ -50,10 +54,21 @@ def _lm_init_decode(cfg, batch, max_len, device):
                          device)
 
 
+def _rwkv_forward(params, batch, cfg, device=None):
+    return R.rwkv_lm_apply(params, batch["tokens"], cfg, device=device)
+
+
+def _rwkv_init_decode(cfg, batch, max_len, device):
+    del max_len  # O(1) recurrent state
+    return R.stacked_rwkv_state(cfg, batch, device)
+
+
 _FAMILIES: Dict[str, ModelAPI] = {
     fam: ModelAPI(fam, T.lm_init, _lm_forward, _lm_init_decode,
                   T.lm_decode_step)
     for fam in ("dense", "moe", "vlm")}
+_FAMILIES["rwkv"] = ModelAPI("rwkv", R.rwkv_lm_init, _rwkv_forward,
+                             _rwkv_init_decode, R.rwkv_lm_decode_step)
 
 
 def get_api(cfg) -> ModelAPI:

@@ -4,8 +4,9 @@
 One engine serves one ``QuantSpec`` (baked into its cfg) on one device.
 With a kernel impl (KERNEL_IMPLS) every dense weight is planned once at
 construction (quantize -> row permutation -> digit planes -> occupancy
-mask -> block schedule) and each of the seven projections per block runs
-a Hopper bw_gemm kernel at every step.  Each step feeds every slot one
+mask -> block schedule) and each planned projection (seven a transformer
+block, eight an RWKV block, and an untied head) runs a Hopper bw_gemm
+kernel at every step.  Each step feeds every slot one
 token -- prompt tokens are teacher-forced through the same decode step --
 and greedily samples the next.
 
@@ -47,8 +48,8 @@ KERNEL_IMPLS = ("pallas", "pallas_fused", "pallas_sparse",
                 "pallas_pipelined")
 
 # Families whose decode state is a recurrence (no position-masked cache):
-# their per-slot state row is re-initialized when a slot is reused.  The
-# port has the dense and MoE families, so this is in place for the others.
+# their per-slot state row is re-initialized when a slot is reused (the
+# port has the RWKV family of the two).
 RESET_STATE_FAMILIES = ("rwkv", "hybrid")
 
 
