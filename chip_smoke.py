@@ -109,7 +109,7 @@ Phases (any failure exits non-zero and prints no result line):
    host seconds to plan the 280 weights with each encoder.
 
 6. The serving stack on the same params, cut to their first
-   SERVER_DEPTH (20) of 40 layers for the script's time
+   SERVER_DEPTH (10) of 40 layers for the script's time
    (``server_phase``), after ``ops.plan_cache_clear()`` and the earlier
    phases' engines are freed:
    8 seeded prompts of 8-24 tokens, 16 new tokens, Poisson arrivals
@@ -258,18 +258,48 @@ Phases (any failure exits non-zero and prints no result line):
    oracle, finite logits [2, 1024, 65536], equal greedy tokens; on B1
    host, device and B1 ms beside ``b1_bound_ms`` (the profiler's raw
    device events), the recurrence's device ms (one layer's scan at the
-   forward's shapes, profiled alone, times 32) and the rest's, peak GB.  (c) On B1, the forward of
-   256 tokens with ``return_state``, then 16 teacher-forced
-   ``rwkv_lm_decode_step``s, against the forward of all 272: read at 32
-   layers, where the card's shape-ordered float32 sums already part two
-   forwards as far as any broken decode; gated at the first layer of the
-   same params (``RWKV_GATE_DEPTH``), the sound decode within
-   ``RWKV_LOGIT_ATOL`` / ``RWKV_MEAN_ATOL`` and each of three broken
-   decodes (the handed-over shift rows zeroed, the wkv state zeroed, u
-   left out) outside them.  (d) On B1, ``loss_fn`` on (b)'s batch,
-   labels at every position: the forward's mean NLL within rtol 1e-6,
-   2,048 tokens counted.  The phase's seconds and the script's are
-   logged.
+   forward's shapes, profiled alone, times 32) and the rest's, peak GB.
+   (c) On B1, the forward of 256 tokens with ``return_state``, then 16
+   teacher-forced ``rwkv_lm_decode_step``s, against the forward of all
+   272, gated at the first layer of the full-width params
+   (``RWKV_GATE_DEPTH``: at 32 layers the card's shape-ordered float32
+   sums part two forwards as far as any broken decode), the sound decode
+   within ``RWKV_LOGIT_ATOL`` / ``RWKV_MEAN_ATOL`` and each of three
+   broken decodes (the handed-over shift rows zeroed, the wkv state
+   zeroed, u left out) outside them.  (d) On B1, ``loss_fn`` on (b)'s
+   batch, labels at every position: the forward's mean NLL within rtol
+   1e-6, 2,048 tokens counted.  The phase's seconds are logged.
+
+12. The hybrid config (``hybrid_config_phase``), after phase 11's params
+   are freed: hymba-1.5b whole (32 layers, d_model 1600, 25 heads x 64
+   with 5 kv heads, d_ff 5504, ssm_state 16, an untied head of 32,128
+   rows; 1.663 B params), params from a seeded torch.Generator with the
+   fusion's betas and the SSM's d_skip drawn, through pallas_fused and
+   the planes oracle, TF32 off.  Nine weights a layer (attention,
+   in_proj / out_proj, the MLP) and the head are planned (the SSM's
+   x_to_dt, dt_proj and x_to_bc are float32 matmuls): B1 launched 9 x 32
+   + 1 = 289 times a decode step or forward and nothing else, the oracle
+   nothing.  (a) Served by ServeEngine (batch 3, 4 seeded prompts of
+   8-24 tokens, 8 new, max_len 32: the fourth reuses a slot, whose KV
+   ring and SSM rows are reset): lock-step logits bit-identical, served
+   tokens equal, and on B1 the fourth request's tokens equal to its run
+   alone on a fresh engine; ms/step, device and B1 ms a step, kernels a
+   step, the head's B1 launch beside its bound and peak GB logged.  (b)
+   The forward, 2 x 896 seeded tokens after the 128 meta tokens: 289 B1
+   launches on pallas_fused, none on the oracle, finite logits [2, 896,
+   32128], equal greedy tokens; on B1 host, device and B1 ms beside
+   ``b1_bound_ms``, the SSM scan's device ms (one layer's scan at the
+   forward's shapes, profiled alone, times 32) and the rest's, peak GB.
+   (c) ``_windowed_chunked`` against ``_windowed`` on seeded bf16 q / k /
+   v [1, 4096, 25, 64], W and chunk 2,048, within HYMBA_WINDOW_RTOL of
+   the largest value.  (d) On B1, the forward without meta over 2 x 32
+   tokens against 32 teacher-forced ``hymba_lm_decode_step``s: the sound
+   decode on all 32 layers within ``HYMBA_LOGIT_ATOL`` /
+   ``HYMBA_MEAN_ATOL``, and each of three broken decodes (the SSM state
+   zeroed at each step, the conv state zeroed, the KV ring not carried)
+   outside them on the first ``HYMBA_BROKEN_DEPTH`` layer.  (e) On B1, ``loss_fn`` on (b)'s batch, labels at
+   every position: the forward's mean NLL within rtol 1e-6, 1,792 tokens
+   counted.  The phase's seconds and the script's are logged.
 
 The kernels line gives, per kernel, one layer's seven launches at N=4
 (four 2304x2304, two 5760x2304 and one 2304x5888 products; B7: one
@@ -287,8 +317,8 @@ seven).  B7 moves its input and four digit planes and the mask; B8/B9
 their two int8 operands and the output (B8: and its scale).  A line
 before it gives B1, B2, B8 and B9 at N=512.  ``launches`` is the count
 on the kernel's own route: pallas_fused at planes=3 for B1 (with phase
-9's two served MoE configs, phase 10's served VLM and phase 11's two
-served B1 runs added), pallas for
+9's two served MoE configs, phase 10's served VLM and phases 11's and
+12's two served B1 runs each added), pallas for
 B2, pallas_sparse for B3 and pallas_pipelined for B5.  B4 and B6, the
 unfused twins, serve no engine; after the pallas_sparse and
 pallas_pipelined runs, every planned weight of the served model goes
@@ -1781,9 +1811,10 @@ def free_device_memory() -> None:
     torch.cuda.empty_cache()
 
 
-# Phase 6's layers: the first half of minicpm-2b's 40, at full width, so
-# that the script stays inside its time limit with phase 11 (PERF.md §4)
-SERVER_DEPTH = 20
+# Phase 6's layers: the first quarter of minicpm-2b's 40, at full width,
+# so that the script stays inside its time limit with phases 11 and 12
+# (PERF.md §4, §6)
+SERVER_DEPTH = 10
 
 
 def server_phase(cfg, params, dev, log, kind) -> dict:
@@ -3257,7 +3288,8 @@ RWKV_PROMPTS = 4
 # forwards' own (4.9375, 0.8270).  At one layer, measured on this seed
 # (NVIDIA H100 80GB HBM3, 700 W): sound 0.1484 / 0.0148; the handed-over
 # shift rows zeroed 3.031 / 0.0963, the wkv state zeroed 3.797 / 0.4905,
-# u left out 0.4385 / 0.0564 (ROADMAP C10)
+# u left out 0.4385 / 0.0564 (ROADMAP C10).  The 32-layer reading, logged
+# only, is no longer taken, for the script's time (PERF.md §6).
 RWKV_GATE_DEPTH = 1
 RWKV_LOGIT_ATOL, RWKV_MEAN_ATOL = 0.3, 0.03
 RWKV_BROKEN = ("shift", "wkv", "u")
@@ -3306,18 +3338,19 @@ def raw_profile(fn) -> dict:
                           for k in set(SYMBOLS.values())}}
 
 
-def rwkv_forward(eng, impl, toks, first, dev) -> tuple:
-    """Phase 11 (b): ``api.forward`` of ``toks`` through a served engine's
-    params (B1's planned, the oracle's raw): B1 launched 8 x layers + 1
-    times and nothing else, the oracle nothing; finite logits of the
-    right shape; greedy tokens equal to those of ``first`` (the first
-    route's logits, or None).  On B1 also, from torch.profiler over one
-    more forward (``raw_profile``), the device ms and B1's beside
-    ``b1_bound_ms``; and the recurrence's: one layer's ``_wkv_scan`` at
-    the forward's shapes, profiled alone (its work does not depend on the
-    values), times the layers.  Returns (row, logits, failures)."""
+def recurrent_forward(eng, impl, toks, first, dev, per_step, bound,
+                      scan_ms) -> tuple:
+    """Phases 11 (b) and 12 (b): ``api.forward`` of ``toks`` through a
+    served engine's params (B1's planned, the oracle's raw): B1 launched
+    ``per_step`` times and nothing else, the oracle nothing; finite logits
+    of the right shape; greedy tokens equal to those of ``first`` (the
+    first route's logits, or None).  On B1 also, from torch.profiler over
+    one more forward (``raw_profile``), the device ms and B1's beside
+    ``bound()`` (``b1_bound_ms`` of the forward's calls); and the
+    recurrence's: ``scan_ms()``, one layer's scan at the forward's shapes
+    profiled alone (its work does not depend on the values), times the
+    layers.  Returns (row, logits, failures)."""
     import torch
-    from repro_torch.models import rwkv6 as R
 
     cfg, failures = eng.cfg, []
     kern = FORWARD_ROUTES[impl]
@@ -3342,25 +3375,13 @@ def rwkv_forward(eng, impl, toks, first, dev) -> tuple:
             prof = raw_profile(forward)
             row["device_ms"] = prof["device_ms"]
             row["b1_ms"] = prof["kernel_ms"][SYMBOLS[kern]]
-            row["b1_bound_ms"] = b1_bound_ms(plan_records(eng.params),
-                                             toks.numel())
+            row["b1_bound_ms"] = bound()
             row["kernels"] = prof["kernels"]
-            hs = cfg.rwkv_head_size
-            gen = torch.Generator(device=dev).manual_seed(1)
-            r, k, v, w = (torch.rand((*toks.shape, cfg.d_model // hs, hs),
-                                     generator=gen, device=dev)
-                          for _ in range(4))
-            s0 = torch.zeros((toks.shape[0], cfg.d_model // hs, hs, hs),
-                             device=dev)
-            u = eng.params["blocks"][0]["tm"]["u"]
-            row["scan_ms"] = cfg.n_layers * raw_profile(
-                lambda: R._wkv_scan(r, k, v, w, u, s0))["device_ms"]
+            row["scan_ms"] = cfg.n_layers * scan_ms()
             row["other_ms"] = row["device_ms"] - row["b1_ms"] - \
                 row["scan_ms"]
             row["profile_s"] = time.perf_counter() - t0
-            del r, k, v, w, s0
-    want = {name: (8 * cfg.n_layers + 1 if name == kern else 0)
-            for name in KERNELS}
+    want = {name: (per_step if name == kern else 0) for name in KERNELS}
     if row["launches"] != want:
         failures.append(f"{what}: launches {row['launches']}, expected "
                         f"{want}")
@@ -3376,6 +3397,21 @@ def rwkv_forward(eng, impl, toks, first, dev) -> tuple:
             failures.append(f"{what}: {row['tokens_differ']} greedy tokens "
                             f"differ from pallas_fused's")
     return row, logits, failures
+
+
+def rwkv_scan_ms(cfg, params, shape, dev) -> float:
+    """One layer's ``_wkv_scan`` over seeded inputs of a forward of
+    ``shape`` (batch x tokens) from a zero state: its device ms."""
+    import torch
+    from repro_torch.models import rwkv6 as R
+
+    hs = cfg.rwkv_head_size
+    gen = torch.Generator(device=dev).manual_seed(1)
+    r, k, v, w = (torch.rand((*shape, cfg.d_model // hs, hs), generator=gen,
+                             device=dev) for _ in range(4))
+    s0 = torch.zeros((shape[0], cfg.d_model // hs, hs, hs), device=dev)
+    u = params["blocks"][0]["tm"]["u"]
+    return raw_profile(lambda: R._wkv_scan(r, k, v, w, u, s0))["device_ms"]
 
 
 def rwkv_handoff(cfg, params, toks, prefix, dev, variants) -> dict:
@@ -3458,9 +3494,9 @@ def rwkv_gate_failures(sound, broken) -> list:
 
 
 def rwkv_loss(eng, toks, labels, logits, dev) -> tuple:
-    """Phase 11 (d): ``loss_fn`` on (b)'s batch, labels at every position,
-    against the mean NLL of the forward's ``logits`` (rtol 1e-6), every
-    position counted.  Returns (row, failures)."""
+    """Phase 11 (d), phase 12 (e): ``loss_fn`` on (b)'s batch, labels at
+    every position, against the mean NLL of the forward's ``logits``
+    (rtol 1e-6), every position counted.  Returns (row, failures)."""
     import torch
     from repro_torch.models.api import loss_fn
 
@@ -3483,6 +3519,138 @@ def rwkv_loss(eng, toks, labels, logits, dev) -> tuple:
     return row, failures
 
 
+def serve_route(cfg, params, impl, prompts, seqs, dev, per_step,
+                head) -> tuple:
+    """Phases 11 (a) and 12 (a): ServeEngine (batch 3, DENSE_MAX_LEN) on
+    ``params`` through ``impl``, ``prompts`` (more than 3: a slot is
+    reused) with DENSE_NEW_TOKENS new tokens each: on B1 ``per_step``
+    weights planned, none of them under ``ops._NO_PLAN_KEYS``, and B1
+    launched ``per_step`` times a step and nothing else; the oracle
+    nothing; every request its tokens.  On B1 also, from torch.profiler
+    over one more decode step, device and B1 ms a step, kernels a step
+    and the ``head`` weight's launch beside its bound.  ``run["lockstep"]``
+    holds the logits teacher-forced through ``seqs`` (None: the served
+    sequences).  Returns (engine, run, failures)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.request import ServeRequest
+
+    kern, failures = FORWARD_ROUTES[impl], []
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, 3, DENSE_MAX_LEN, quant=spec_of(impl),
+                      params=params, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    reqs = [ServeRequest(i, list(q), DENSE_NEW_TOKENS)
+            for i, q in enumerate(prompts)]
+    zero_counts()
+    stats = eng.run(reqs)
+    run = {"tokens": [r.out for r in reqs], "setup_s": setup_s,
+           "planned_weights": (eng.plan_stats or {}).get(
+               "planned_weights", 0),
+           "steps": stats["engine_steps"],
+           "ms_per_step": 1e3 * stats["wall_s"] / stats["engine_steps"],
+           "launches": read_counts(),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    want = {name: per_step * run["steps"] if name == kern else 0
+            for name in KERNELS}
+    if run["launches"] != want:
+        failures.append(f"impl={impl}: launches {run['launches']}, "
+                        f"expected {want}")
+    raw = [key for key in ops._NO_PLAN_KEYS
+           if any("w_plan" in w for w in planned_under(eng.params, key))]
+    if kern and (run["planned_weights"] != per_step or raw):
+        failures.append(f"{run['planned_weights']} weights planned, "
+                        f"expected {per_step}; planned, but raw in the "
+                        f"reference: {raw}")
+    if any(len(q) != DENSE_NEW_TOKENS for q in run["tokens"]):
+        failures.append(f"impl={impl}: a request did not generate "
+                        f"{DENSE_NEW_TOKENS} tokens")
+    if kern:
+        prof, trace = profile_calls(lambda: profile_step(eng, dev))
+        run["device_ms_per_step"] = prof["device_ms_per_step"]
+        run["b1_ms_per_step"] = prof["kernel_ms_per_step"].get(
+            SYMBOLS[kern], 0.0)
+        run["kernels_per_step"] = prof["kernel_launches_per_step"]
+        run["head_us"], run["b1_events"] = longest_launch_us(
+            trace, SYMBOLS[kern])
+        run["head_bound_us"] = 1e3 * b1_bound_ms(
+            [eng.params[head]["w_plan"]], eng.batch)
+        del trace
+    run["lockstep"] = lockstep_logits(
+        eng, seqs or [q + o for q, o in zip(prompts, run["tokens"])], dev)
+    return eng, run, failures
+
+
+def planned_under(params, key) -> list:
+    """Every dict of a param tree held under ``key``."""
+    out = []
+
+    def walk(node):
+        if isinstance(node, list):
+            for v in node:
+                walk(v)
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                if k == key and isinstance(v, dict):
+                    out.append(v)
+                walk(v)
+    walk(params)
+    return out
+
+
+def fresh_slot_check(cfg, params, impl, prompts, run, dev, per_step,
+                     log, tag) -> list:
+    """Phases 11 (a) and 12 (a): the last of ``prompts``, served in a
+    reused slot in ``run``, alone on a fresh engine: the same tokens, B1
+    launched ``per_step`` times a step.  Sets ``run["fresh"]``; returns
+    the failures."""
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.request import ServeRequest
+
+    kern = FORWARD_ROUTES[impl]
+    free_device_memory()
+    last = len(prompts) - 1
+    fresh = ServeEngine(cfg, 3, DENSE_MAX_LEN, quant=spec_of(impl),
+                        params=params, device=dev)
+    alone = ServeRequest(last, list(prompts[last]), DENSE_NEW_TOKENS)
+    zero_counts()
+    stats = fresh.run([alone])
+    run["fresh"] = {"tokens": alone.out, "steps": stats["engine_steps"],
+                    "launches": read_counts()}
+    failures = []
+    if run["fresh"]["launches"] != {
+            name: per_step * run["fresh"]["steps"] if name == kern else 0
+            for name in KERNELS}:
+        failures.append(f"fresh engine: launches {run['fresh']['launches']}")
+    if alone.out != run["tokens"][last]:
+        failures.append(f"request {last} in a reused slot emitted "
+                        f"{run['tokens'][last]}, alone on a fresh engine "
+                        f"{alone.out}")
+    log(f"{tag} impl={impl}: request {last} in a reused slot "
+        f"{run['tokens'][last]}, alone on a fresh engine {alone.out}")
+    return failures
+
+
+def oracle_agreement(runs, log, tag) -> tuple:
+    """Phases 11 and 12: the planes oracle against pallas_fused, their
+    lock-step logits (popped from ``runs``) bit-identical and their
+    served tokens equal.  Returns (the agreement, failures)."""
+    kernel, oracle = runs["pallas_fused"], runs["planes"]
+    lock = lockstep_agreement(kernel.pop("lockstep"), oracle.pop("lockstep"))
+    lock["served_tokens_equal"] = oracle["tokens"] == kernel["tokens"]
+    log(f"{tag}: the planes oracle against pallas_fused in lock step: "
+        f"{json.dumps(lock)}")
+    if lock["max_logit_gap"] != 0.0 or lock["tokens_differ"] or \
+            not lock["served_tokens_equal"]:
+        return lock, [f"the planes oracle differs from pallas_fused: "
+                      f"{json.dumps(lock)}"]
+    return lock, []
+
+
 def rwkv_config_phase(dev, log, kind) -> dict:
     """Phase 11: rwkv6-3b whole at its published widths (32 layers,
     d_model 2560, 40 heads x 64, d_ff 8960, an untied head of 65,536
@@ -3498,18 +3666,17 @@ def rwkv_config_phase(dev, log, kind) -> dict:
     tokens equal; on B1 the request in the reused slot emits the tokens
     it emits alone on a fresh engine; ms/step, device and B1 ms a step,
     the head's B1 launch beside its bound, kernels a step, peak GB.  (b)
-    The forward of RWKV_FORWARD_SIZE seeded tokens (``rwkv_forward``).
+    The forward of RWKV_FORWARD_SIZE seeded tokens
+    (``recurrent_forward``).
     (c) On B1, the forward over RWKV_PREFIX tokens with its state, then
     RWKV_DECODE_TOKENS decode steps, against the forward over the whole
-    (``rwkv_handoff``): read at all 32 layers, gated at RWKV_GATE_DEPTH
-    (within RWKV_LOGIT_ATOL / RWKV_MEAN_ATOL, the three broken decodes
-    outside them).  (d) On B1, loss_fn on (b)'s batch (``rwkv_loss``)."""
+    (``rwkv_handoff``): gated at RWKV_GATE_DEPTH (within RWKV_LOGIT_ATOL
+    / RWKV_MEAN_ATOL, the three broken decodes outside them).  (d) On B1, loss_fn on (b)'s batch (``rwkv_loss``)."""
     import numpy as np
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.models.api import get_api
-    from repro_torch.serving.engine import ServeEngine, state_leaves
-    from repro_torch.serving.request import ServeRequest
+    from repro_torch.serving.engine import state_leaves
 
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("phase 11: TF32 is on for float32 matmuls; the "
@@ -3537,58 +3704,19 @@ def rwkv_config_phase(dev, log, kind) -> dict:
     failures, runs, seqs, first = [], {}, None, None
     for impl in ("pallas_fused", "planes"):
         kern = FORWARD_ROUTES[impl]
-        free_device_memory()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        eng = ServeEngine(cfg, 3, DENSE_MAX_LEN, quant=spec_of(impl),
-                          params=params, device=dev)
-        torch.cuda.synchronize()
-        setup_s = time.perf_counter() - t0
-        reqs = [ServeRequest(i, list(q), DENSE_NEW_TOKENS)
-                for i, q in enumerate(prompts)]
-        zero_counts()
-        stats = eng.run(reqs)
-        run = {"tokens": [r.out for r in reqs], "setup_s": setup_s,
-               "planned_weights": (eng.plan_stats or {}).get(
-                   "planned_weights", 0),
-               "steps": stats["engine_steps"],
-               "ms_per_step": 1e3 * stats["wall_s"] / stats["engine_steps"],
-               "launches": read_counts(),
-               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
-        want = {name: per_step * run["steps"] if name == kern else 0
-                for name in KERNELS}
-        if run["launches"] != want:
-            failures.append(f"impl={impl}: launches {run['launches']}, "
-                            f"expected {want}")
-        lora = eng.params["blocks"][0]["tm"]
-        if kern and (run["planned_weights"] != per_step or any(
-                "w_plan" in lora[k] for k in ("mix_w1", "w_lora1",
-                                              "w_lora2"))):
-            failures.append(f"{run['planned_weights']} weights planned, "
-                            f"expected {per_step} (the LoRAs not among "
-                            f"them)")
-        if any(len(q) != DENSE_NEW_TOKENS for q in run["tokens"]):
-            failures.append(f"impl={impl}: a request did not generate "
-                            f"{DENSE_NEW_TOKENS} tokens")
-        if impl == "pallas_fused":
-            prof, trace = profile_calls(lambda: profile_step(eng, dev))
-            run["device_ms_per_step"] = prof["device_ms_per_step"]
-            run["b1_ms_per_step"] = prof["kernel_ms_per_step"].get(
-                SYMBOLS["bw_gemm_fused"], 0.0)
-            run["kernels_per_step"] = prof["kernel_launches_per_step"]
-            run["head_us"], run["b1_events"] = longest_launch_us(
-                trace, SYMBOLS["bw_gemm_fused"])
-            run["head_bound_us"] = 1e3 * b1_bound_ms(
-                [eng.params["head"]["w_plan"]], eng.batch)
-            del trace
+        eng, run, fails = serve_route(cfg, params, impl, prompts, seqs, dev,
+                                      per_step, "head")
+        failures += fails
+        if kern:
             seqs = [q + o for q, o in zip(prompts, run["tokens"])]
-        run["lockstep"] = lockstep_logits(eng, seqs, dev)
         shown = {k: v for k, v in run.items()
                  if k not in ("tokens", "lockstep")}
         log(f"[rwkv] {RWKV_ARCH} impl={impl} served: {json.dumps(shown)}  "
             f"({kind})")
-        run["forward"], logits, fails = rwkv_forward(eng, impl, toks[:, :t],
-                                                     first, dev)
+        run["forward"], logits, fails = recurrent_forward(
+            eng, impl, toks[:, :t], first, dev, per_step,
+            lambda: b1_bound_ms(plan_records(eng.params), b * t),
+            lambda: rwkv_scan_ms(cfg, params, (b, t), dev))
         failures += fails
         log(f"[rwkv] {RWKV_ARCH} forward impl={impl} batch {b} x {t} tokens "
             f"(N={b * t}): {json.dumps(run['forward'])}  ({kind})")
@@ -3596,13 +3724,12 @@ def rwkv_config_phase(dev, log, kind) -> dict:
             first = logits
             seq = toks[:, :p + RWKV_DECODE_TOKENS]
             depth = RWKV_GATE_DEPTH
-            whole = rwkv_handoff(eng.cfg, eng.params, seq, p, dev, (None,))
             gated = rwkv_handoff(
                 eng.cfg.replace(n_layers=depth),
                 dict(eng.params, blocks=eng.params["blocks"][:depth]), seq,
                 p, dev, (None,) + RWKV_BROKEN)
-            for n, row in ((per_step, whole[None]),
-                           *((8 * depth + 1, r) for r in gated.values())):
+            for row in gated.values():
+                n = 8 * depth + 1
                 if row["launches"] != {name: n * row["calls"] if name == kern
                                        else 0 for name in KERNELS}:
                     failures.append(f"forward state + decode: launches "
@@ -3611,7 +3738,6 @@ def rwkv_config_phase(dev, log, kind) -> dict:
             failures += rwkv_gate_failures(
                 gated[None], {k: gated[k] for k in RWKV_BROKEN})
             run["state_decode"] = {
-                f"{cfg.n_layers}_layers": whole[None],
                 f"{depth}_layer": {str(k): {key: r[key] for key in (
                     "tokens_differ", "max_logit_gap", "mean_logit_gap",
                     "forwards_max_gap")} for k, r in gated.items()}}
@@ -3626,46 +3752,331 @@ def rwkv_config_phase(dev, log, kind) -> dict:
             log(f"[rwkv] {RWKV_ARCH} loss_fn, labels at every position: "
                 f"{json.dumps(run['loss'])}  ({kind})")
         del logits, eng
-        if impl == "pallas_fused":
-            # the request served in the reused slot, alone on a fresh engine
-            free_device_memory()
-            last = RWKV_PROMPTS - 1
-            fresh = ServeEngine(cfg, 3, DENSE_MAX_LEN, quant=spec_of(impl),
-                                params=params, device=dev)
-            alone = ServeRequest(last, list(prompts[last]), DENSE_NEW_TOKENS)
-            zero_counts()
-            fresh_stats = fresh.run([alone])
-            run["fresh"] = {"tokens": alone.out,
-                            "steps": fresh_stats["engine_steps"],
-                            "launches": read_counts()}
-            if run["fresh"]["launches"] != {
-                    name: per_step * run["fresh"]["steps"] if name == kern
-                    else 0 for name in KERNELS}:
-                failures.append(f"fresh engine: launches "
-                                f"{run['fresh']['launches']}")
-            if alone.out != run["tokens"][last]:
-                failures.append(f"request {last} in a reused slot emitted "
-                                f"{run['tokens'][last]}, alone on a fresh "
-                                f"engine {alone.out}")
-            log(f"[rwkv] {RWKV_ARCH} impl={impl}: request {last} in a "
-                f"reused slot {run['tokens'][last]}, alone on a fresh "
-                f"engine {alone.out}  ({kind})")
-            del fresh
+        if kern:
+            failures += fresh_slot_check(cfg, params, impl, prompts, run,
+                                         dev, per_step, log,
+                                         f"[rwkv] {RWKV_ARCH}")
         runs[impl] = run
     del first
-    kernel, oracle = runs["pallas_fused"], runs["planes"]
-    lock = lockstep_agreement(kernel.pop("lockstep"), oracle.pop("lockstep"))
-    lock["served_tokens_equal"] = oracle["tokens"] == kernel["tokens"]
-    log(f"[rwkv] {RWKV_ARCH}: the planes oracle against pallas_fused in "
-        f"lock step: {json.dumps(lock)}")
-    if lock["max_logit_gap"] != 0.0 or lock["tokens_differ"] or \
-            not lock["served_tokens_equal"]:
-        failures.append(f"the planes oracle differs from pallas_fused: "
-                        f"{json.dumps(lock)}")
+    lock, fails = oracle_agreement(runs, log, f"[rwkv] {RWKV_ARCH}")
+    failures += fails
     del params
     free_device_memory()
     if failures:
         raise AssertionError("phase 11: " + "; ".join(failures))
+    return {"layers": cfg.n_layers, "init_s": init_s, "per_step": per_step,
+            "oracle": lock, **runs}
+
+
+# Phase 12: the hybrid config.  hymba-1.5b runs whole.  (b)'s batch x
+# tokens: 896 + the 128 meta tokens = 1,024 positions a row (N = 2,048 in
+# each layer, 1,792 at the head); (a)'s prompts, one more than the
+# batch's 3 slots, so that the last reuses a slot; (c)'s q / k / v
+# [B, T, H, D], the shapes a forward of 3,968 tokens with meta reaches,
+# and its tolerance: in bf16 the plain walk rounds the normalised
+# probabilities and the chunked one the unnormalised weights, so the two
+# sit a bf16 ulp apart (2^-7 of the largest value bounds one ulp of any
+# value; tests/test_torch_hymba.py's WALKS_TOL); (d)'s tokens a row.
+HYMBA_ARCH = "hymba-1.5b"
+HYMBA_FORWARD_SIZE = (2, 896)
+HYMBA_PROMPTS = 4
+HYMBA_WINDOW_SHAPE = (1, 4096, 25, 64)
+HYMBA_WINDOW_RTOL = 2.0 ** -7
+HYMBA_DECODE_TOKENS = 32
+# (d)'s gate: the forward without meta against token-by-token decode,
+# largest and mean logit gap: the sound decode within it on all 32
+# layers, each broken decode outside it on the first HYMBA_BROKEN_DEPTH
+# layer(s), where the broken readings sit closest to the sound one (and
+# cost a few seconds, where 32 layers cost some 40 on a slow host).  On
+# B1 a token's projections do not depend on the others (per-token
+# quantization, integer sums), and on this seed the card gave the decode
+# the forward's logits bit for bit at every depth from 1 to 32 layers;
+# the broken decodes read 5.28-6.63 / 0.27-0.96 (SSM state or conv state
+# zeroed) and 1.47 / 0.088 at one layer, 5.61 / 0.878 at 32 (KV ring not
+# carried), measured on NVIDIA H100 80GB HBM3, 700 W (ROADMAP C11).  The
+# gate keeps phase 11's 0.3 / 0.03.
+HYMBA_LOGIT_ATOL, HYMBA_MEAN_ATOL = 0.3, 0.03
+HYMBA_BROKEN = ("h", "conv", "ring")
+HYMBA_BROKEN_DEPTH = 1
+
+
+def hymba_draw_constants(params, gen) -> None:
+    """Replace, in place, the leaves hymba_lm_init sets to ones (the
+    fusion's beta_attn and beta_ssm, the SSM's d_skip) by seeded
+    U(0.5, 1.5) draws, so that a swapped beta or a dropped skip moves the
+    logits (tests/test_torch_hymba.py draws from the same distribution)."""
+    for blk in params["blocks"]:
+        for tree, key in ((blk, "beta_attn"), (blk, "beta_ssm"),
+                          (blk["ssm"], "d_skip")):
+            tree[key].uniform_(0.5, 1.5, generator=gen)
+
+
+def hymba_scan_ms(cfg, params, shape, dev) -> float:
+    """One layer's ``_selective_scan`` over seeded inputs of a forward of
+    ``shape`` (batch x positions, the meta tokens included) from a zero
+    state: its device ms."""
+    import torch
+    from repro_torch.models import ssm as S
+
+    (b, tt), di, n = shape, cfg.ssm_expand * cfg.d_model, cfg.ssm_state
+    gen = torch.Generator(device=dev).manual_seed(1)
+    xs, dt = (torch.rand((b, tt, di), generator=gen, device=dev)
+              for _ in range(2))
+    bmat, cmat = (torch.rand((b, tt, n), generator=gen, device=dev)
+                  for _ in range(2))
+    h0 = torch.zeros((b, di, n), device=dev)
+    a = -torch.exp(params["blocks"][0]["ssm"]["a_log"])
+    return raw_profile(lambda: S._selective_scan(
+        xs, dt, bmat, cmat, a, h0))["device_ms"]
+
+
+def hymba_bound_ms(params, b, t) -> float:
+    """``b1_bound_ms`` of a forward of b x t tokens: every layer's calls
+    at N = b x (t + 128), the meta tokens included; the head's at b x t."""
+    from repro_torch.models import hymba as H
+
+    head = params["lm_head"]["w_plan"]
+    return b1_bound_ms([p for p in plan_records(params) if p is not head],
+                       b * (t + H.N_META)) + b1_bound_ms([head], b * t)
+
+
+def hymba_windows(dev) -> dict:
+    """Phase 12 (c): ``_windowed_chunked`` (W 2,048, chunk 2,048) against
+    ``_windowed`` on seeded bf16 q / k / v of HYMBA_WINDOW_SHAPE, within
+    HYMBA_WINDOW_RTOL of the plain walk's largest value; the gaps and
+    each walk's ms (host clock, synchronised)."""
+    import torch
+    from repro_torch.models import hymba as H
+
+    b, t, h, d = HYMBA_WINDOW_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn((b, t, h, d), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    pos = torch.arange(t, device=dev)[None].expand(b, t)
+    out = {}
+    with torch.no_grad():
+        for name, fn in (("plain", lambda: H._windowed(
+                q, k, v, H.HYMBA_WINDOW, pos)),
+                         ("chunked", lambda: H._windowed_chunked(
+                             q, k, v, H.HYMBA_WINDOW, H.HYMBA_WINDOW))):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[name] = fn().float()
+            torch.cuda.synchronize()
+            out[f"{name}_ms"] = 1e3 * (time.perf_counter() - t0)
+    gap = (out.pop("chunked") - out["plain"]).abs()
+    largest = float(out.pop("plain").abs().max())
+    row = {**out, "largest": largest, "max_gap": float(gap.max()),
+           "mean_gap": float(gap.mean()),
+           "atol": HYMBA_WINDOW_RTOL * largest}
+    del q, k, v, gap
+    return row
+
+
+def hymba_handoff(cfg, params, toks, dev, variants) -> dict:
+    """Phase 12 (d): ``hymba_lm_apply(with_meta=False)`` over ``toks``
+    against ``hymba_lm_decode_step`` on each token (teacher-forced) from
+    ``init_hymba_caches``, once a variant: None is the sound decode; "h"
+    zeroes the SSM state and "conv" the conv state before each step,
+    "ring" starts each step from an empty KV ring (a token attends only
+    to itself).  Per variant: tokens differing, their top-2 margins, the
+    largest and the mean logit gap, the launches of the decode steps; and
+    the gap over the first half of the positions between the forwards of
+    the first half and of all (the card's own sum orders by shape)."""
+    import torch
+    from repro_torch.models import hymba as H
+
+    b, t = toks.shape
+    with torch.no_grad():
+        want = H.hymba_lm_apply(params, toks, cfg, dev,
+                                with_meta=False)[0].float()
+        half = H.hymba_lm_apply(params, toks[:, :t // 2], cfg, dev,
+                                with_meta=False)[0].float()
+    forwards = float((half - want[:, :t // 2]).abs().max())
+    top2 = want.topk(2, dim=-1).values
+    out = {}
+    for broken in variants:
+        zero_counts()
+        with torch.no_grad():
+            state = H.init_hymba_caches(cfg, b, device=dev)
+            steps = []
+            for i in range(t):
+                if broken in ("h", "conv"):
+                    state["ssm"][broken].zero_()
+                elif broken == "ring":
+                    state["kv"]["k"].zero_()
+                    state["kv"]["v"].zero_()
+                    state["kv"]["pos"].fill_(-1)
+                step, state = H.hymba_lm_decode_step(
+                    params, toks[:, i:i + 1],
+                    torch.full((b,), i, dtype=torch.int32, device=dev),
+                    state, cfg)
+                steps.append(step)
+            torch.cuda.synchronize()
+        got = torch.cat(steps, dim=1).float()
+        gap = (got - want).abs()
+        differ = got.argmax(-1) != want.argmax(-1)
+        out[broken] = {
+            "calls": t, "tokens": int(differ.numel()),
+            "tokens_differ": int(differ.sum()),
+            "margins": [round(float(v), 4)
+                        for v in (top2[..., 0] - top2[..., 1])[differ]],
+            "max_logit_gap": float(gap.max()),
+            "mean_logit_gap": float(gap.mean()),
+            "forwards_max_gap": forwards,
+            "launches": read_counts()}
+        del state, steps, got
+    return out
+
+
+def hymba_gate_failures(sound, broken) -> list:
+    """(d)'s gate: the sound decode within HYMBA_LOGIT_ATOL (largest gap,
+    and the top-2 margin of any token flipped) and HYMBA_MEAN_ATOL
+    (mean); each broken decode outside it."""
+    failures = []
+    if any(v > HYMBA_LOGIT_ATOL for v in sound["margins"]) or \
+            sound["max_logit_gap"] > HYMBA_LOGIT_ATOL or \
+            sound["mean_logit_gap"] > HYMBA_MEAN_ATOL:
+        failures.append(
+            f"forward without meta against decode: "
+            f"{sound['tokens_differ']} of {sound['tokens']} greedy tokens "
+            f"differ (top-2 margins there: {sound['margins']}), largest "
+            f"logit gap {sound['max_logit_gap']} (allowed "
+            f"{HYMBA_LOGIT_ATOL}), mean {sound['mean_logit_gap']} (allowed "
+            f"{HYMBA_MEAN_ATOL})")
+    for name, row in broken.items():
+        if row["max_logit_gap"] <= HYMBA_LOGIT_ATOL and \
+                row["mean_logit_gap"] <= HYMBA_MEAN_ATOL:
+            failures.append(f"the decode broken by {name!r} passes the "
+                            f"gate: largest {row['max_logit_gap']}, mean "
+                            f"{row['mean_logit_gap']}")
+    return failures
+
+
+def hybrid_config_phase(dev, log, kind) -> dict:
+    """Phase 12: hymba-1.5b whole at its published widths (32 layers,
+    d_model 1600, 25 heads x 64 with 5 kv heads, d_ff 5504, ssm_state 16,
+    an untied head of 32,128 rows), params from a seeded torch.Generator
+    with the betas and d_skip drawn (``hymba_draw_constants``), through
+    pallas_fused and the planes oracle, TF32 off.  Nine weights a layer
+    (wq, wk, wv, wo, in_proj, out_proj, gate, up, down) and the head are
+    planned; x_to_dt, dt_proj and x_to_bc are float32 matmuls, never
+    planned: B1 launched 9 x 32 + 1 = 289 times a decode step or forward
+    and nothing else, the oracle nothing.  (a) Served by ServeEngine
+    (batch 3, HYMBA_PROMPTS seeded prompts of 8-24 tokens,
+    DENSE_NEW_TOKENS new tokens, max_len 32; the last request reuses a
+    slot, whose ring and SSM rows are reset): both routes' lock-step
+    logits bit-identical and the served tokens equal; on B1 the request
+    in the reused slot emits the tokens it emits alone on a fresh engine;
+    ms/step, device and B1 ms a step, the head's B1 launch beside its
+    bound, kernels a step, peak GB.  (b) The forward of
+    HYMBA_FORWARD_SIZE seeded tokens after the meta tokens
+    (``recurrent_forward``).  (c) ``_windowed_chunked`` against
+    ``_windowed`` at HYMBA_WINDOW_SHAPE (``hymba_windows``).  (d) On B1,
+    the forward without meta over HYMBA_DECODE_TOKENS tokens against
+    token-by-token decode (``hymba_handoff``): on all 32 layers within
+    HYMBA_LOGIT_ATOL / HYMBA_MEAN_ATOL, the three broken decodes outside
+    them on the first HYMBA_BROKEN_DEPTH layer(s).  (e) On B1, loss_fn on (b)'s batch (``rwkv_loss``)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import hymba as H
+    from repro_torch.models.api import get_api
+    from repro_torch.serving.engine import state_leaves
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("phase 12: TF32 is on for float32 matmuls; the "
+                             "SSM's projections and scan must run in "
+                             "float32")
+    cfg = get_config(HYMBA_ARCH)
+    b, t = HYMBA_FORWARD_SIZE
+    per_step = 9 * cfg.n_layers + 1
+    free_device_memory()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = get_api(cfg).init(gen, cfg, dev)
+    hymba_draw_constants(params, gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in state_leaves(params))
+    log(f"[hybrid] {HYMBA_ARCH}: {n_params / 1e9:.3f} B params "
+        f"(param_count {cfg.param_count() / 1e9:.3f} B) drawn in "
+        f"{init_s:.2f} s  ({kind})")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(8, 25)))
+               .tolist() for _ in range(HYMBA_PROMPTS)]
+    rng = np.random.default_rng(11)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, t + 1)),
+                           device=dev)
+    failures, runs, seqs, first = [], {}, None, None
+    tag = f"[hybrid] {HYMBA_ARCH}"
+    for impl in ("pallas_fused", "planes"):
+        kern = FORWARD_ROUTES[impl]
+        eng, run, fails = serve_route(cfg, params, impl, prompts, seqs, dev,
+                                      per_step, "lm_head")
+        failures += fails
+        if kern:
+            seqs = [q + o for q, o in zip(prompts, run["tokens"])]
+        shown = {k: v for k, v in run.items()
+                 if k not in ("tokens", "lockstep")}
+        log(f"{tag} impl={impl} served: {json.dumps(shown)}  ({kind})")
+        run["forward"], logits, fails = recurrent_forward(
+            eng, impl, toks[:, :t], first, dev, per_step,
+            lambda: hymba_bound_ms(eng.params, b, t),
+            lambda: hymba_scan_ms(cfg, params, (b, t + H.N_META), dev))
+        failures += fails
+        log(f"{tag} forward impl={impl} batch {b} x {t} tokens after "
+            f"{H.N_META} meta tokens: {json.dumps(run['forward'])}  ({kind})")
+        if kern:
+            first = logits
+            run["windows"] = hymba_windows(dev)
+            if run["windows"]["max_gap"] > run["windows"]["atol"]:
+                failures.append(f"_windowed_chunked against _windowed: "
+                                f"{json.dumps(run['windows'])}")
+            log(f"{tag} _windowed_chunked against _windowed at "
+                f"{list(HYMBA_WINDOW_SHAPE)} bf16, W = chunk = "
+                f"{H.HYMBA_WINDOW}: {json.dumps(run['windows'])}  ({kind})")
+            seq, depth = toks[:, :HYMBA_DECODE_TOKENS], HYMBA_BROKEN_DEPTH
+            sound = hymba_handoff(eng.cfg, eng.params, seq, dev, (None,))
+            broken = hymba_handoff(
+                eng.cfg.replace(n_layers=depth),
+                dict(eng.params, blocks=eng.params["blocks"][:depth]), seq,
+                dev, HYMBA_BROKEN)
+            for n, row in ((per_step, sound[None]),
+                           *((9 * depth + 1, r) for r in broken.values())):
+                if row["launches"] != {name: n * row["calls"] if name == kern
+                                       else 0 for name in KERNELS}:
+                    failures.append(f"forward without meta against decode: "
+                                    f"launches {row['launches']}, expected "
+                                    f"{n} a call")
+            failures += hymba_gate_failures(sound[None], broken)
+            run["decode"] = {
+                f"{cfg.n_layers}_layers": sound[None],
+                f"{depth}_layer": {k: {key: r[key] for key in (
+                    "tokens_differ", "max_logit_gap", "mean_logit_gap",
+                    "forwards_max_gap")} for k, r in broken.items()}}
+            log(f"{tag} forward without meta over {HYMBA_DECODE_TOKENS} "
+                f"tokens against as many decode steps (gate: largest "
+                f"{HYMBA_LOGIT_ATOL}, mean {HYMBA_MEAN_ATOL}): "
+                f"{json.dumps(run['decode'])}  ({kind})")
+            run["loss"], fails = rwkv_loss(eng, toks[:, :t], toks[:, 1:t + 1],
+                                           logits, dev)
+            failures += fails
+            log(f"{tag} loss_fn, labels at every position: "
+                f"{json.dumps(run['loss'])}  ({kind})")
+        del logits, eng
+        if kern:
+            failures += fresh_slot_check(cfg, params, impl, prompts, run,
+                                         dev, per_step, log, tag)
+        runs[impl] = run
+    del first
+    lock, fails = oracle_agreement(runs, log, tag)
+    failures += fails
+    del params
+    free_device_memory()
+    if failures:
+        raise AssertionError("phase 12: " + "; ".join(failures))
     return {"layers": cfg.n_layers, "init_s": init_s, "per_step": per_step,
             "oracle": lock, **runs}
 
@@ -3875,7 +4286,18 @@ def main(argv=None) -> int:
     log(f"[rwkv] phase 11 in {time.perf_counter() - t0:.1f} s; B1 launches "
         f"served {rwkv_launches}; peak GB {round(served['peak_gb'], 2)} "
         f"(B1), {round(rwkv['planes']['peak_gb'], 2)} (oracle)  ({kind})")
-    log(f"[total] phases 2-11 in {time.perf_counter() - started:.1f} s")
+
+    # -- 12. the hybrid config -----------------------------------------------
+    t0 = time.perf_counter()
+    hybrid = hybrid_config_phase(dev, log, kind)
+    served = hybrid["pallas_fused"]
+    hybrid_launches = served["launches"]["bw_gemm_fused"] + \
+        served["fresh"]["launches"]["bw_gemm_fused"]
+    log(f"[hybrid] phase 12 in {time.perf_counter() - t0:.1f} s; B1 "
+        f"launches served {hybrid_launches}; peak GB "
+        f"{round(served['peak_gb'], 2)} (B1), "
+        f"{round(hybrid['planes']['peak_gb'], 2)} (oracle)  ({kind})")
+    log(f"[total] phases 2-12 in {time.perf_counter() - started:.1f} s")
 
     # -- the kernels line ----------------------------------------------------
     replaces = {"bw_gemm_fused": "src/repro/kernels/bw_gemm.py:215",
@@ -3934,7 +4356,7 @@ def main(argv=None) -> int:
             count = launches[name]["stats"]["launches"][name]
             if name == "bw_gemm_fused":
                 count += sum(moe_launches.values()) + vlm_launches + \
-                    rwkv_launches
+                    rwkv_launches + hybrid_launches
         elif name in unfused:
             count = unfused[name]["stats"]["unfused"]["launches"][name]
         else:

@@ -1,6 +1,6 @@
 """Config schema: the model architecture fields the port's dense, MoE,
-VLM and RWKV families read, and the four input-shape cells, with the
-reference's names and defaults (``repro.configs.base``)."""
+VLM, RWKV and hybrid families read, and the four input-shape cells, with
+the reference's names and defaults (``repro.configs.base``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -19,7 +19,7 @@ def pad_vocab(v: int, multiple: int = 128) -> int:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | moe | vlm | rwkv
+    family: str                    # dense | moe | vlm | rwkv | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -36,8 +36,11 @@ class ModelConfig:
     moe_shard: str = "expert"
     moe_dispatch_groups: int = 1   # >1: tokens dispatched in groups
     router_aux_coef: float = 0.01
-    # --- RWKV ---
+    # --- RWKV / SSM ---
     rwkv_head_size: int = 0
+    ssm_state: int = 0             # the SSM's state size n a channel
+    ssm_expand: int = 2            # d_inner = ssm_expand * d_model
+    ssm_conv: int = 4              # the causal conv's width K
     # modality frontend (the VLM family's stub: precomputed embeddings)
     frontend: Optional[str] = None  # 'vision' | 'audio'
     frontend_tokens: int = 0        # patches / frames per example
@@ -76,7 +79,8 @@ class ModelConfig:
     def param_count(self) -> int:
         """Approximate parameter count (embeddings + blocks), as the
         reference counts it: an RWKV block's mixing stands at 6 d x d
-        (no LoRA, decay or norm counted)."""
+        (no LoRA, decay or norm counted); a hybrid block counts its
+        attention and MLP only (no SSM branch, no meta tokens)."""
         d, hd = self.d_model, self.resolved_head_dim
         attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) \
             + self.n_heads * hd * d

@@ -1,15 +1,16 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig (full or smoke).
 
-The port has the reference's RWKV, four dense, two MoE and one VLM
-architectures so far, in the reference's order; its other two follow
-with their model families.
+The port has the reference's RWKV, four dense, two MoE, one VLM and one
+hybrid architectures so far, in the reference's order; the
+encoder-decoder one follows with its model family.
 """
 from __future__ import annotations
 
 from typing import List
 
-from . import (granite_34b, grok_1_314b, minicpm_2b, nemotron_4_15b,
-               olmoe_1b_7b, phi_3_vision_4_2b, qwen1_5_110b, rwkv6_3b)
+from . import (granite_34b, grok_1_314b, hymba_1_5b, minicpm_2b,
+               nemotron_4_15b, olmoe_1b_7b, phi_3_vision_4_2b,
+               qwen1_5_110b, rwkv6_3b)
 from .base import ModelConfig
 
 _MODULES = {
@@ -21,6 +22,7 @@ _MODULES = {
     "nemotron-4-15b": nemotron_4_15b,
     "qwen1.5-110b": qwen1_5_110b,
     "granite-34b": granite_34b,
+    "hymba-1.5b": hymba_1_5b,
 }
 
 ARCHS: List[str] = list(_MODULES)

@@ -10,13 +10,15 @@ loops are architecture-agnostic:
 
 ``batch`` is a dict: {"tokens": int [B,T], "labels": int [B,T]} plus
 "frontend": [B,F,d_model] for the VLM family (precomputed patch
-embeddings, the modality stub).  The port has the dense, MoE, VLM and
-RWKV families so far.  The first three run ``models/transformer.py`` (an
-MoE block swaps its MLP for the experts; a VLM's frontend overwrites the
-prompt's first F positions); the RWKV family runs ``models/rwkv6.py``,
-whose decode state is a recurrence, the same size at any ``max_len``.
-The hybrid and encoder-decoder families are not ported: ``get_api``
-raises for them.
+embeddings, the modality stub).  The port has the dense, MoE, VLM, RWKV
+and hybrid families so far.  The first three run
+``models/transformer.py`` (an MoE block swaps its MLP for the experts; a
+VLM's frontend overwrites the prompt's first F positions); the RWKV
+family runs ``models/rwkv6.py``, whose decode state is a recurrence, the
+same size at any ``max_len``; the hybrid family runs ``models/hymba.py``,
+whose decode state is a KV ring of the attention window and the SSM's
+recurrence, also the same size at any ``max_len``.  The
+encoder-decoder family is not ported: ``get_api`` raises for it.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from typing import Callable, Dict
 
 import torch
 
+from . import hymba as H
 from . import rwkv6 as R
 from . import transformer as T
 
@@ -63,12 +66,23 @@ def _rwkv_init_decode(cfg, batch, max_len, device):
     return R.stacked_rwkv_state(cfg, batch, device)
 
 
+def _hymba_forward(params, batch, cfg, device=None):
+    return H.hymba_lm_apply(params, batch["tokens"], cfg, device)
+
+
+def _hymba_init_decode(cfg, batch, max_len, device):
+    del max_len  # a ring of the attention window + the SSM state
+    return H.init_hymba_caches(cfg, batch, getattr(torch, cfg.dtype), device)
+
+
 _FAMILIES: Dict[str, ModelAPI] = {
     fam: ModelAPI(fam, T.lm_init, _lm_forward, _lm_init_decode,
                   T.lm_decode_step)
     for fam in ("dense", "moe", "vlm")}
 _FAMILIES["rwkv"] = ModelAPI("rwkv", R.rwkv_lm_init, _rwkv_forward,
                              _rwkv_init_decode, R.rwkv_lm_decode_step)
+_FAMILIES["hybrid"] = ModelAPI("hybrid", H.hymba_lm_init, _hymba_forward,
+                               _hymba_init_decode, H.hymba_lm_decode_step)
 
 
 def get_api(cfg) -> ModelAPI:

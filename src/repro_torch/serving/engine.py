@@ -5,8 +5,8 @@ One engine serves one ``QuantSpec`` (baked into its cfg) on one device.
 With a kernel impl (KERNEL_IMPLS) every dense weight is planned once at
 construction (quantize -> row permutation -> digit planes -> occupancy
 mask -> block schedule) and each planned projection (seven a transformer
-block, eight an RWKV block, and an untied head) runs a Hopper bw_gemm
-kernel at every step.  Each step feeds every slot one
+block, eight an RWKV block, nine a hybrid block, and an untied head)
+runs a Hopper bw_gemm kernel at every step.  Each step feeds every slot one
 token -- prompt tokens are teacher-forced through the same decode step --
 and greedily samples the next.
 
@@ -47,10 +47,18 @@ _M_TOK_RECOVERED = _REG.counter("repro_serve_tokens_recovered_total")
 KERNEL_IMPLS = ("pallas", "pallas_fused", "pallas_sparse",
                 "pallas_pipelined")
 
-# Families whose decode state is a recurrence (no position-masked cache):
-# their per-slot state row is re-initialized when a slot is reused (the
-# port has the RWKV family of the two).
+# Families whose decode state holds a recurrence (not only a
+# position-masked cache): their per-slot state rows, every leaf of the
+# tree, are re-initialized when a slot is reused.
 RESET_STATE_FAMILIES = ("rwkv", "hybrid")
+
+
+def _clone_tree(tree):
+    """A copy of a decode-state tree of dicts at any depth
+    (``jax.tree.map(jnp.copy, ...)``)."""
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return tree.clone()
 
 
 def state_leaves(state) -> List[torch.Tensor]:
@@ -108,7 +116,7 @@ class ServeEngine:
             params = self.api.init(gen, cfg, self.device)
         self.params = params
         self.state = self.api.init_decode(cfg, batch, max_len, self.device)
-        self._state0 = ({k: v.clone() for k, v in self.state.items()}
+        self._state0 = (_clone_tree(self.state)
                         if self.api.family in RESET_STATE_FAMILIES else None)
         self._kernel_path = spec is not None and spec.impl in KERNEL_IMPLS
         self.plan_density = None

@@ -1,7 +1,7 @@
 """The port's dense configs (granite-34b, nemotron-4-15b, qwen1.5-110b
 beside minicpm-2b) against the reference's: their fields, parameter
-counts, registry order and input-shape cells (the MoE, VLM and RWKV configs'
-fields and counts too), and decode through the port's ``ServeEngine`` against
+counts, registry order and input-shape cells (the MoE, VLM, RWKV and
+hybrid configs' fields and counts too), and decode through the port's ``ServeEngine`` against
 the reference's on each new config's smoke size.
 
 Decode runs the reference in a subprocess with XLA's excess precision
@@ -94,7 +94,7 @@ def shared_fields(cfg):
 def test_config_matches_reference(arch, smoke):
     """Every field the port's config has equals the reference's, and so
     do the parameter counts; a field the port lacks is one neither the
-    dense, the MoE, the VLM nor the RWKV forward reads."""
+    dense, the MoE, the VLM, the RWKV nor the hybrid forward reads."""
     tcfg, jcfg = get_config(arch, smoke=smoke), jget_config(arch,
                                                             smoke=smoke)
     names = shared_fields(tcfg)
@@ -113,15 +113,17 @@ def test_config_matches_reference(arch, smoke):
                           "n_experts", "experts_per_token",
                           "capacity_factor", "moe_shard",
                           "moe_dispatch_groups", "router_aux_coef",
-                          "rwkv_head_size", "subquadratic"}
+                          "rwkv_head_size", "ssm_state", "ssm_expand",
+                          "ssm_conv", "subquadratic"}
 
 
 def test_registry_follows_reference_order():
     assert ARCHS == [a for a in JARCHS if a in ARCHS]
     assert set(NEW_ARCHS) | {"minicpm-2b", "olmoe-1b-7b", "grok-1-314b",
-                             "phi-3-vision-4.2b", "rwkv6-3b"} == set(ARCHS)
+                             "phi-3-vision-4.2b", "rwkv6-3b",
+                             "hymba-1.5b"} == set(ARCHS)
     with pytest.raises(ValueError, match="unknown arch"):
-        get_config("hymba-1.5b")
+        get_config("seamless-m4t-medium")
     assert get_config("qwen1.5-110b", smoke=True, n_layers=3).n_layers == 3
 
 

@@ -505,17 +505,18 @@ def test_launcher_serves_each_moe_arch(arch, capsys):
 
 
 def test_other_families_still_refused():
-    """get_api takes the dense, MoE, VLM and RWKV families and the
-    transformer's lm_init the first three; the hybrid and
-    encoder-decoder families are not ported, and the RWKV family has its
-    own init (``models/rwkv6.py``)."""
+    """get_api takes the dense, MoE, VLM, RWKV and hybrid families and
+    the transformer's lm_init the first three; the encoder-decoder
+    family is not ported, and the RWKV and hybrid families have their
+    own inits (``models/rwkv6.py``, ``models/hymba.py``)."""
     cfg = get_config("olmoe-1b-7b", smoke=True)
     assert get_api(cfg).family == "moe"
     assert get_api(cfg.replace(family="vlm")).family == "vlm"
     assert get_api(cfg.replace(family="rwkv")).family == "rwkv"
+    assert get_api(cfg.replace(family="hybrid")).family == "hybrid"
     for family in ("rwkv", "hybrid", "encdec"):
         other = cfg.replace(family=family)
-        if family != "rwkv":
+        if family == "encdec":
             with pytest.raises(ValueError, match="not ported"):
                 get_api(other)
         with pytest.raises(ValueError, match="not ported"):
