@@ -109,7 +109,7 @@ Phases (any failure exits non-zero and prints no result line):
    host seconds to plan the 280 weights with each encoder.
 
 6. The serving stack on the same params, cut to their first
-   SERVER_DEPTH (10) of 40 layers for the script's time
+   SERVER_DEPTH (5) of 40 layers for the script's time
    (``server_phase``), after ``ops.plan_cache_clear()`` and the earlier
    phases' engines are freed:
    8 seeded prompts of 8-24 tokens, 16 new tokens, Poisson arrivals
@@ -216,13 +216,14 @@ Phases (any failure exits non-zero and prints no result line):
    oracle, equal greedy tokens.  The phase's seconds are logged.
 
 10. The VLM config (``vlm_config_phase``), after phase 9's params are
-   freed: phi-3-vision-4.2b whole (32 layers, d_model 3072, 32 x 96
-   heads, MHA, d_ff 8192, an untied head of 32,128 rows; 3.821 B params
-   beside frontend_proj's 9.4 M), params from a seeded torch.Generator,
-   through pallas_fused and the planes oracle.  frontend_proj, the
-   vision stub's projection, is a bf16 matmul, never planned: B1
-   launched 7 x 32 + 1 = 225 times a decode step or forward and nothing
-   else, the oracle nothing.  (a)
+   freed: phi-3-vision-4.2b at its published widths (32 layers, d_model
+   3072, 32 x 96 heads, MHA, d_ff 8192, an untied head of 32,128 rows;
+   3.821 B params beside frontend_proj's 9.4 M), params drawn whole from
+   a seeded torch.Generator and run on their first CONFIG_DEPTH (8)
+   layers for the script's time, through pallas_fused and the planes
+   oracle.  frontend_proj, the vision stub's projection, is a bf16
+   matmul, never planned: B1 launched 7 x 8 + 1 = 57 times a decode step
+   or forward and nothing else, the oracle nothing.  (a)
    Served by ServeEngine on text (batch 3, 3 seeded prompts of 8-24
    tokens, 8 new, max_len 32): lock-step logits bit-identical, served
    tokens equal; ms/step, device and B1 ms a step, kernels a step, the
@@ -241,65 +242,103 @@ Phases (any failure exits non-zero and prints no result line):
    1e-6, 2 x 448 tokens counted.  The phase's seconds are logged.
 
 11. The RWKV config (``rwkv_config_phase``), after phase 10's params are
-   freed: rwkv6-3b whole (32 layers, d_model 2560, 40 heads x 64, d_ff
-   8960, an untied head of 65,536 rows; 3.100 B params), params from a
-   seeded torch.Generator with the seven constant leaves drawn, through
-   pallas_fused and the planes oracle, TF32 off.  Eight weights a layer
-   and the head are planned (the mixing LoRAs are float32 matmuls,
-   mix_w2 an einsum): B1 launched 8 x 32 + 1 = 257 times a decode step
-   or forward and nothing else, the oracle nothing.  (a) Served by
+   freed: rwkv6-3b at its published widths (32 layers, d_model 2560, 40
+   heads x 64, d_ff 8960, an untied head of 65,536 rows; 3.100 B params),
+   params drawn whole from a seeded torch.Generator with the seven
+   constant leaves drawn, run on their first CONFIG_DEPTH (8) layers,
+   through pallas_fused and the planes oracle, TF32 off.  Eight weights
+   a layer and the head are planned (the mixing LoRAs are float32
+   matmuls, mix_w2 an einsum): B1 launched 8 x 8 + 1 = 65 times a decode
+   step or forward and nothing else, the oracle nothing.  (a) Served by
    ServeEngine (batch 3, 4 seeded prompts of 8-24 tokens, 8 new,
    max_len 32: the fourth reuses a slot, whose recurrent row is reset):
    lock-step logits bit-identical, served tokens equal, and on B1 the
    fourth request's tokens equal to its run alone on a fresh engine;
    ms/step, device and B1 ms a step, kernels a step, the head's B1
    launch beside its bound and peak GB logged.  (b) The forward, 2 x
-   1,024 seeded tokens: 257 B1 launches on pallas_fused, none on the
-   oracle, finite logits [2, 1024, 65536], equal greedy tokens; on B1
+   512 seeded tokens: 65 B1 launches on pallas_fused, none on the
+   oracle, finite logits [2, 512, 65536], equal greedy tokens; on B1
    host, device and B1 ms beside ``b1_bound_ms`` (the profiler's raw
    device events), the recurrence's device ms (one layer's scan at the
-   forward's shapes, profiled alone, times 32) and the rest's, peak GB.
+   forward's shapes, profiled alone, times the layers) and the rest's,
+   peak GB.
    (c) On B1, the forward of 256 tokens with ``return_state``, then 16
    teacher-forced ``rwkv_lm_decode_step``s, against the forward of all
-   272, gated at the first layer of the full-width params
+   272, gated at the first layer of the params
    (``RWKV_GATE_DEPTH``: at 32 layers the card's shape-ordered float32
    sums part two forwards as far as any broken decode), the sound decode
    within ``RWKV_LOGIT_ATOL`` / ``RWKV_MEAN_ATOL`` and each of three
    broken decodes (the handed-over shift rows zeroed, the wkv state
    zeroed, u left out) outside them.  (d) On B1, ``loss_fn`` on (b)'s
    batch, labels at every position: the forward's mean NLL within rtol
-   1e-6, 2,048 tokens counted.  The phase's seconds are logged.
+   1e-6, 1,024 tokens counted.  The phase's seconds are logged.
 
 12. The hybrid config (``hybrid_config_phase``), after phase 11's params
-   are freed: hymba-1.5b whole (32 layers, d_model 1600, 25 heads x 64
-   with 5 kv heads, d_ff 5504, ssm_state 16, an untied head of 32,128
-   rows; 1.663 B params), params from a seeded torch.Generator with the
-   fusion's betas and the SSM's d_skip drawn, through pallas_fused and
-   the planes oracle, TF32 off.  Nine weights a layer (attention,
-   in_proj / out_proj, the MLP) and the head are planned (the SSM's
-   x_to_dt, dt_proj and x_to_bc are float32 matmuls): B1 launched 9 x 32
-   + 1 = 289 times a decode step or forward and nothing else, the oracle
-   nothing.  (a) Served by ServeEngine (batch 3, 4 seeded prompts of
+   are freed: hymba-1.5b at its published widths (32 layers, d_model
+   1600, 25 heads x 64 with 5 kv heads, d_ff 5504, ssm_state 16, an
+   untied head of 32,128 rows; 1.663 B params), params drawn whole from
+   a seeded torch.Generator with the fusion's betas and the SSM's d_skip
+   drawn, run on their first CONFIG_DEPTH (8) layers, through
+   pallas_fused and the planes oracle, TF32 off.  Nine weights a layer
+   (attention, in_proj / out_proj, the MLP) and the head are planned
+   (the SSM's x_to_dt, dt_proj and x_to_bc are float32 matmuls): B1
+   launched 9 x 8 + 1 = 73 times a decode step or forward and nothing
+   else, the oracle nothing.  (a) Served by ServeEngine (batch 3, 4 seeded prompts of
    8-24 tokens, 8 new, max_len 32: the fourth reuses a slot, whose KV
    ring and SSM rows are reset): lock-step logits bit-identical, served
    tokens equal, and on B1 the fourth request's tokens equal to its run
    alone on a fresh engine; ms/step, device and B1 ms a step, kernels a
    step, the head's B1 launch beside its bound and peak GB logged.  (b)
-   The forward, 2 x 896 seeded tokens after the 128 meta tokens: 289 B1
-   launches on pallas_fused, none on the oracle, finite logits [2, 896,
+   The forward, 2 x 384 seeded tokens after the 128 meta tokens: 73 B1
+   launches on pallas_fused, none on the oracle, finite logits [2, 384,
    32128], equal greedy tokens; on B1 host, device and B1 ms beside
    ``b1_bound_ms``, the SSM scan's device ms (one layer's scan at the
-   forward's shapes, profiled alone, times 32) and the rest's, peak GB.
+   forward's shapes, profiled alone, times the layers) and the rest's,
+   peak GB.
    (c) ``_windowed_chunked`` against ``_windowed`` on seeded bf16 q / k /
    v [1, 4096, 25, 64], W and chunk 2,048, within HYMBA_WINDOW_RTOL of
    the largest value.  (d) On B1, the forward without meta over 2 x 32
-   tokens against 32 teacher-forced ``hymba_lm_decode_step``s: the sound
-   decode on all 32 layers within ``HYMBA_LOGIT_ATOL`` /
-   ``HYMBA_MEAN_ATOL``, and each of three broken decodes (the SSM state
-   zeroed at each step, the conv state zeroed, the KV ring not carried)
-   outside them on the first ``HYMBA_BROKEN_DEPTH`` layer.  (e) On B1, ``loss_fn`` on (b)'s batch, labels at
-   every position: the forward's mean NLL within rtol 1e-6, 1,792 tokens
-   counted.  The phase's seconds and the script's are logged.
+   tokens against 32 teacher-forced ``hymba_lm_decode_step``s on the
+   first ``HYMBA_GATE_DEPTH`` layers: the sound decode within
+   ``HYMBA_LOGIT_ATOL`` / ``HYMBA_MEAN_ATOL``, and each of three broken
+   decodes (the SSM state zeroed at each step, the conv state zeroed,
+   the KV ring not carried) outside them.  (e) On B1,
+   ``loss_fn`` on (b)'s batch, labels at every position: the forward's
+   mean NLL within rtol 1e-6, 768 tokens counted.  The phase's seconds
+   are logged.
+
+13. The encoder-decoder config (``encdec_config_phase``), after phase
+   12's params are freed: seamless-m4t-medium whole (12 encoder + 12
+   decoder layers, d_model 1024, 16 heads x 64, d_ff 4096, LayerNorm, an
+   un-gated gelu MLP folded into B1's epilogue, an untied head of
+   256,256 rows; 0.88 B params), params from a seeded torch.Generator,
+   through pallas_fused (B1), pallas (B2) and the planes oracle, TF32
+   off.  193 weights are planned (frontend_proj, a bf16 matmul, is
+   not): the route's kernel launched 8 x 12 + 1 = 97 times a decode step
+   and 193 times a forward, and nothing else; the oracle nothing.  B1
+   (with and without the gelu) and B2 against their plain versions on
+   the served plans at N 3, 128 and 1,024.  (a) Served by ServeEngine
+   (batch 3, 4 seeded prompts of 8-24 tokens, 8 new, max_len 32: the
+   fourth reuses a slot) against the zero cross K/V, as the reference
+   serves: B1's lock-step logits within ``ENCDEC_ACT_GAP`` of B2's
+   (greedy tokens equal but where the top-2 margin is within it); the
+   oracle, which rounds before the gelu (ROADMAP C7), logged against B1
+   with the margin at each flip; on B1 the fourth request's tokens equal
+   to its run alone on a fresh engine; ms/step, device and B1 ms a step,
+   kernels a step, the head's B1 launch beside its bound, peak GB and
+   planning seconds logged.  (b) The forward, 2 x 64 seeded tokens over
+   2 x 512 seeded frames, on B1 and B2: finite logits [2, 64, 256256],
+   B2's within ``ENCDEC_ACT_GAP`` of B1's; host and device ms, the
+   kernel's ms at N 1,024 (the priming's calls, profiled alone) and 128
+   beside ``b1_bound_ms``, peak GB.  (c) On B1, ``encdec_prime_cross``
+   then 64 teacher-forced ``encdec_decode_step``s against (b)'s forward,
+   on all 12 decoder layers: the sound decode within
+   ``ENCDEC_LOGIT_ATOL`` / ``ENCDEC_MEAN_ATOL``, and each of three
+   broken decodes (cross K/V left zero, the two requests' cross rows
+   swapped, the self cache one position off) outside them.  (d) On B1,
+   ``loss_fn`` on (b)'s batch, labels at every position: the forward's
+   mean NLL within rtol 1e-6, 128 tokens counted.  The phase's seconds
+   and the script's are logged.
 
 The kernels line gives, per kernel, one layer's seven launches at N=4
 (four 2304x2304, two 5760x2304 and one 2304x5888 products; B7: one
@@ -317,10 +356,10 @@ seven).  B7 moves its input and four digit planes and the mask; B8/B9
 their two int8 operands and the output (B8: and its scale).  A line
 before it gives B1, B2, B8 and B9 at N=512.  ``launches`` is the count
 on the kernel's own route: pallas_fused at planes=3 for B1 (with phase
-9's two served MoE configs, phase 10's served VLM and phases 11's and
-12's two served B1 runs each added), pallas for
-B2, pallas_sparse for B3 and pallas_pipelined for B5.  B4 and B6, the
-unfused twins, serve no engine; after the pallas_sparse and
+9's two served MoE configs, phase 10's served VLM and phases 11's, 12's
+and 13's two served B1 runs each added), pallas for B2 (with phase 13's
+served B2 run added), pallas_sparse for B3 and pallas_pipelined for
+B5.  B4 and B6, the unfused twins, serve no engine; after the pallas_sparse and
 pallas_pipelined runs, every planned weight of the served model goes
 once through planned_dense_apply(fused=False) on the engine's sparse
 route (B4 on its m_major plans, B6 on the k_major ones), held
@@ -1634,10 +1673,17 @@ def kernel_api_pass(params, dev, log) -> dict:
             "silu_bit_identical": silu_equal}
 
 
-def device_us(evt) -> float:
-    """A profiler event's own device time, us."""
-    return (getattr(evt, "self_device_time_total", None)
-            or getattr(evt, "self_cuda_time_total", 0) or 0)
+def device_events(prof) -> list:
+    """(name, device ns) of every device event (kernels, copies, sets) of
+    a finished torch.profiler session, read from its raw kineto events:
+    the profiler's Python events (``key_averages``, ``events``) take
+    about ten times as long to build, longer than the calls profiled."""
+    def ns(e):
+        f = getattr(e, "duration_ns", None)
+        return f() if f is not None else 1000 * e.duration_us()
+    return [(e.name(), ns(e)) for e in prof.profiler.kineto_results.events()
+            if str(e.device_type()).endswith("CUDA")
+            and e.name() != MOE_RANGE]      # phase 9's range on the card
 
 
 def profile_step(eng, dev) -> None:
@@ -1656,40 +1702,43 @@ def profile_steps(eng, dev, steps: int = 3) -> dict:
     return profile_calls(lambda: profile_step(eng, dev), steps)[0]
 
 
-def profile_calls(fn, steps: int = 1):
+def profile_calls(fn, steps: int = 1, host: bool = False,
+                  warmed: bool = False):
     """torch.profiler over ``steps`` fn() calls, after one unprofiled
-    call: the device time a call (kernel events only; the CPU ops that
-    launched them would count it twice), each bw_gemm kernel's part of it
-    and its device operations a call, and the costliest kernels.  Returns
-    (that dict, the profile)."""
+    call (none if ``warmed``: the caller has just made one): the device
+    time a call (every device event), each bw_gemm kernel's part of it
+    and its device operations a call, and the costliest kernels
+    (``device_events``).  The device's activity only, unless ``host``:
+    then the host's too, for a ``record_function`` range's device time
+    (``moe_experts_profile``).  Returns (that dict, the profile)."""
+    import collections
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if not warmed:
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA] +
+                 ([ProfilerActivity.CPU] if host else [])) as prof:
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")
-               and e.key != MOE_RANGE]      # phase 9's range on the card
-    total_us = sum(device_us(e) for e in kernels)
-    kern_us = {k: sum(device_us(e) for e in kernels if k in e.key)
-               for k in set(SYMBOLS.values())}
-    kern_calls = {k: sum(e.count for e in kernels if k in e.key)
-                  for k in set(SYMBOLS.values())}
-    top = sorted(kernels, key=device_us, reverse=True)[:12]
+    us, count = collections.Counter(), collections.Counter()
+    for name, ns in device_events(prof):
+        us[name] += ns / 1e3
+        count[name] += 1
+    top = sorted(us, key=us.get, reverse=True)[:12]
     return {"steps": steps,
-            "device_ms_per_step": total_us / 1e3 / steps,
-            "kernel_launches_per_step": sum(e.count for e in kernels) / steps,
-            "kernel_ms_per_step": {k: v / 1e3 / steps
-                                   for k, v in kern_us.items()},
-            "kernel_ops_per_step": {k: v / steps
-                                    for k, v in kern_calls.items()},
-            "top_kernels": [(e.key[:90], device_us(e) / 1e3 / steps,
-                             e.count / steps) for e in top]}, prof
+            "device_ms_per_step": sum(us.values()) / 1e3 / steps,
+            "kernel_launches_per_step": sum(count.values()) / steps,
+            "kernel_ms_per_step": {
+                k: sum(v for n, v in us.items() if k in n) / 1e3 / steps
+                for k in set(SYMBOLS.values())},
+            "kernel_ops_per_step": {
+                k: sum(v for n, v in count.items() if k in n) / steps
+                for k in set(SYMBOLS.values())},
+            "top_kernels": [(n[:90], us[n] / 1e3 / steps, count[n] / steps)
+                            for n in top]}, prof
 
 
 # served kernel -> its CUDA symbol in profiler events
@@ -1811,10 +1860,22 @@ def free_device_memory() -> None:
     torch.cuda.empty_cache()
 
 
-# Phase 6's layers: the first quarter of minicpm-2b's 40, at full width,
-# so that the script stays inside its time limit with phases 11 and 12
-# (PERF.md §4, §6)
-SERVER_DEPTH = 10
+# Phase 6's layers: the first eighth of minicpm-2b's 40, at full width,
+# so that the script stays inside its time limit (PERF.md §4, §6)
+SERVER_DEPTH = 5
+# Phases 10-12's layers: the first quarter of each config's 32, at full
+# width, for the script's time (PERF.md §4).  The params are drawn whole
+# and cut after, so that the layers the decode gates read
+# (RWKV_GATE_DEPTH, HYMBA_GATE_DEPTH) and the head hold the weights the
+# gates were set on.
+CONFIG_DEPTH = 8
+
+
+def first_layers(cfg, params, depth: int):
+    """(cfg, params) cut to their first ``depth`` layers."""
+    depth = min(depth, cfg.n_layers)
+    return (cfg.replace(n_layers=depth),
+            dict(params, blocks=params["blocks"][:depth]))
 
 
 def server_phase(cfg, params, dev, log, kind) -> dict:
@@ -1891,8 +1952,7 @@ def server_phase(cfg, params, dev, log, kind) -> dict:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         p_stats = server.run(server_requests(cfg, 2, (8, 8), 4),
                              realtime=True)
-    dev_ms = sum(device_us(e) for e in prof.key_averages()
-                 if str(getattr(e, "device_type", "")).endswith("CUDA")) / 1e3
+    dev_ms = sum(ns for _, ns in device_events(prof)) / 1e6
     dev_ms_step = dev_ms / p_stats["engine_steps"]
     busy = dev_ms_step * r_stats["engine_steps"] / (1e3 * r_stats["sim_s"])
     out.update(virtual=stats, virtual_launches=launches,
@@ -2392,19 +2452,48 @@ def spec_of(impl: str):
                            f"impl={impl}")
 
 
-def wide_cases(dev, log) -> dict:
-    """Phase 8: B1 (with a bias, under every activation) and B2 at the
-    forward's widths WIDE_NS, at the path's shapes, against their plain
-    versions: B2 and B1 without an activation bit for bit, with one
-    within ACT_RTOL / ACT_ATOL.  Returns kernel -> calls checked."""
+def hold_b1_b2(digits, mask, scale, bias, x, acts, calls, what, **kw):
+    """B2 and B1 (under each of ``acts``) on one planned weight and the
+    float32 tokens ``x`` [N, K_pad], quantized per token at planes=3,
+    against their plain versions: B2 and B1 without an activation bit
+    for bit, with one within ACT_RTOL / ACT_ATOL.  Adds the calls to
+    ``calls``."""
     import torch
     from repro_torch.core import quant
     from repro_torch.kernels import bw_gemm as bwk
     from repro_torch.kernels import ops
 
+    qx, sx = quant.quantize_to_planes(x, 3, axis=-1)
+    b = ops._pad_to(qx, kw["block_k"], 1).contiguous()
+    got = bwk.bw_gemm(digits, b, mask, **kw)
+    if not torch.equal(got, bwk.bw_gemm_plain(digits, b, mask, **kw)):
+        raise AssertionError(f"bw_gemm != plain at {what}")
+    calls["bw_gemm"] += 1
+    del got
+    args = (digits, b, mask, scale, bias, sx.reshape(1, -1).contiguous())
+    for act in acts:
+        got = bwk.bw_gemm_fused(*args, activation=act, **kw)
+        want = bwk.bw_gemm_fused_plain(*args, activation=act, **kw)
+        ok = torch.equal(got, want) if act is None else bool(
+            torch.all((got - want).abs() <= ACT_ATOL + ACT_RTOL * want.abs()))
+        if not ok:
+            raise AssertionError(f"bw_gemm_fused[{act}] != plain at {what}: "
+                                 f"max |diff| "
+                                 f"{float((got - want).abs().max())}")
+        calls["bw_gemm_fused"] += 1
+        del got, want
+
+
+def wide_cases(dev, log) -> dict:
+    """Phase 8: B1 (with a bias, under every activation) and B2 at the
+    forward's widths WIDE_NS, at the path's shapes, against their plain
+    versions (``hold_b1_b2``).  Returns kernel -> calls checked."""
+    import torch
+    from repro_torch.core import quant
+    from repro_torch.kernels import ops
+
     gen = torch.Generator(device=dev).manual_seed(8)
     calls = {"bw_gemm_fused": 0, "bw_gemm": 0}
-    kw = dict(block_m=128, block_k=256, radix=4)
     for m, k, _ in PATH_SHAPES:
         w = torch.randn((k, m), generator=gen, device=dev)
         qw, sw = quant.quantize_to_planes(w, 3, axis=0)
@@ -2415,28 +2504,9 @@ def wide_cases(dev, log) -> dict:
         bias = torch.randn((digits.shape[1], 1), generator=gen, device=dev)
         for n in WIDE_NS:
             x = torch.randn((n, k), generator=gen, device=dev)
-            qx, sx = quant.quantize_to_planes(x, 3, axis=-1)
-            b = ops._pad_to(qx, 256, 1)
-            sx_cols = sx.reshape(1, -1).contiguous()
-            got = bwk.bw_gemm(digits, b, mask, **kw)
-            if not torch.equal(got, bwk.bw_gemm_plain(digits, b, mask,
-                                                      **kw)):
-                raise AssertionError(f"bw_gemm != plain at M={m} K={k} "
-                                     f"N={n}")
-            calls["bw_gemm"] += 1
-            for act in ACTS:
-                args = (digits, b, mask, scale, bias, sx_cols)
-                got = bwk.bw_gemm_fused(*args, activation=act, **kw)
-                want = bwk.bw_gemm_fused_plain(*args, activation=act, **kw)
-                ok = torch.equal(got, want) if act is None else bool(
-                    torch.all((got - want).abs()
-                              <= ACT_ATOL + ACT_RTOL * want.abs()))
-                if not ok:
-                    raise AssertionError(
-                        f"bw_gemm_fused[{act}] with bias != plain at M={m} "
-                        f"K={k} N={n}: max |diff| "
-                        f"{float((got - want).abs().max())}")
-                calls["bw_gemm_fused"] += 1
+            hold_b1_b2(digits, mask, scale, bias, x, ACTS, calls,
+                       f"M={m} K={k} N={n} with bias", block_m=128,
+                       block_k=256, radix=4)
     log(f"[forward] B1 (bias; activations {ACTS}) and B2 at N in "
         f"{WIDE_NS} on {len(PATH_SHAPES)} shapes equal their plain "
         f"versions: {json.dumps(calls)} calls")
@@ -2481,9 +2551,7 @@ def b1_bound_ms(plans, n: int) -> float:
 def longest_launch_us(prof, symbol: str) -> tuple:
     """(the longest ``symbol`` kernel's device us, how many the profile
     holds) over a profile's kernel events."""
-    times = [e.device_time_total for e in prof.events()
-             if str(getattr(e, "device_type", "")).endswith("CUDA")
-             and symbol in e.name]
+    times = [ns / 1e3 for name, ns in device_events(prof) if symbol in name]
     return (max(times) if times else None), len(times)
 
 
@@ -2530,7 +2598,8 @@ def forward_phase(cfg, params, dev, log, kind) -> dict:
                 launches = read_counts()
                 peak_gb = torch.cuda.max_memory_allocated() / 1e9
                 prof, _ = profile_calls(lambda: T.lm_apply(planned, toks,
-                                                           rcfg, dev))
+                                                           rcfg, dev),
+                                        warmed=True)
             row = {"plan_s": plan_s, "host_ms": host_ms,
                    "device_ms": prof["device_ms_per_step"],
                    "kernel_ms": prof["kernel_ms_per_step"].get(
@@ -2840,7 +2909,8 @@ def moe_experts_profile(eng, dev) -> dict:
             return experts(*args, **kw)
     moe._experts = ranged
     try:
-        prof, trace = profile_calls(lambda: profile_step(eng, dev))
+        prof, trace = profile_calls(lambda: profile_step(eng, dev),
+                                    host=True)
     finally:
         moe._experts = experts
     experts_us = sum(e.device_time_total for e in trace.events()
@@ -3025,7 +3095,8 @@ def moe_config_phase(dev, log, kind) -> dict:
     return out
 
 
-# Phase 10: the VLM config, phi-3-vision-4.2b whole, its frontend stub fed
+# Phase 10: the VLM config, phi-3-vision-4.2b on its first CONFIG_DEPTH
+# layers at full width, its frontend stub fed
 # seeded float32 patch embeddings.  (batch, tokens) of the multimodal
 # forward: its first frontend_tokens (576) positions are the frontend's,
 # so N = 2,048 with 448 text positions a row.
@@ -3068,7 +3139,7 @@ def vlm_forward(eng, impl, toks, frontend, first, dev) -> tuple:
                "launches": read_counts(),
                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
         if kern:
-            prof, _ = profile_calls(forward)
+            prof, _ = profile_calls(forward, warmed=True)
             row["device_ms"] = prof["device_ms_per_step"]
             row["b1_ms"] = prof["kernel_ms_per_step"].get(SYMBOLS[kern], 0.0)
             row["b1_bound_ms"] = b1_bound_ms(plan_records(eng.params),
@@ -3131,12 +3202,12 @@ def vlm_loss(eng, toks, labels, frontend, logits, dev) -> tuple:
 
 
 def vlm_config_phase(dev, log, kind) -> dict:
-    """Phase 10: phi-3-vision-4.2b whole at its published widths (32
-    layers, d_model 3072, 32 x 96 heads, d_ff 8192, an untied head of
-    32,128 rows), params from a seeded torch.Generator, through
-    pallas_fused and the planes oracle.  (a) Served by ServeEngine on text
+    """Phase 10: phi-3-vision-4.2b at its published widths (d_model 3072,
+    32 x 96 heads, d_ff 8192, an untied head of 32,128 rows), params
+    drawn whole (32 layers) from a seeded torch.Generator and run on the
+    first CONFIG_DEPTH, through pallas_fused and the planes oracle.  (a) Served by ServeEngine on text
     (batch 3, 3 seeded prompts of 8-24 tokens, DENSE_NEW_TOKENS new
-    tokens): B1 launched 7 x 32 + 1 = 225 times a step and nothing else
+    tokens): B1 launched 7 x 8 + 1 = 57 times a step and nothing else
     (frontend_proj is neither planned nor quantized), the oracle nothing;
     both routes' lock-step logits bit-identical and the served tokens
     equal (no activation is folded); ms/step, device and B1 ms a step,
@@ -3158,7 +3229,6 @@ def vlm_config_phase(dev, log, kind) -> dict:
 
     cfg = get_config(VLM_ARCH)
     f, (b, t) = cfg.frontend_tokens, VLM_FORWARD_SIZE
-    per_step = 7 * cfg.n_layers + 1
     free_device_memory()
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -3167,7 +3237,10 @@ def vlm_config_phase(dev, log, kind) -> dict:
     init_s = time.perf_counter() - t0
     log(f"[vlm] {VLM_ARCH}: {cfg.param_count() / 1e9:.3f} B params (and "
         f"frontend_proj's {cfg.d_model ** 2 / 1e6:.1f} M) drawn in "
-        f"{init_s:.2f} s  ({kind})")
+        f"{init_s:.2f} s, run on the first {CONFIG_DEPTH} of "
+        f"{cfg.n_layers} layers  ({kind})")
+    cfg, params = first_layers(cfg, params, CONFIG_DEPTH)
+    per_step = 7 * cfg.n_layers + 1
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(8, 25)))
                .tolist() for _ in range(3)]
@@ -3271,12 +3344,14 @@ def vlm_config_phase(dev, log, kind) -> dict:
             "oracle": lock, **runs}
 
 
-# Phase 11: the RWKV config.  rwkv6-3b runs whole.  The forward's batch x
-# tokens (N = 2,048); (c)'s prefix, run by the forward with its state, and
-# the decode steps after it; (a)'s prompts, one more than the batch's 3
-# slots, so that the last reuses a slot.
+# Phase 11: the RWKV config.  rwkv6-3b runs on its first CONFIG_DEPTH
+# layers at full width.  The forward's batch x
+# tokens (N = 1,024; cut from 2 x 1,024 for the script's time, PERF.md
+# §4: the recurrence steps position by position); (c)'s prefix, run by the
+# forward with its state, and the decode steps after it; (a)'s prompts,
+# one more than the batch's 3 slots, so that the last reuses a slot.
 RWKV_ARCH = "rwkv6-3b"
-RWKV_FORWARD_SIZE = (2, 1024)
+RWKV_FORWARD_SIZE = (2, 512)
 RWKV_PREFIX, RWKV_DECODE_TOKENS = 256, 16
 RWKV_PROMPTS = 4
 # (c)'s gate: forward state + decode against the forward, largest and
@@ -3323,15 +3398,10 @@ def raw_profile(fn) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    def ns(e):
-        f = getattr(e, "duration_ns", None)
-        return f() if f is not None else 1000 * e.duration_us()
-
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    device = [(e.name(), ns(e)) for e in prof.profiler.kineto_results.events()
-              if str(e.device_type()).endswith("CUDA")]
+    device = device_events(prof)
     return {"device_ms": sum(d for _, d in device) / 1e6,
             "kernels": len(device),
             "kernel_ms": {k: sum(d for n, d in device if k in n) / 1e6
@@ -3432,7 +3502,6 @@ def rwkv_handoff(cfg, params, toks, prefix, dev, variants) -> dict:
     with torch.no_grad():
         want = R.rwkv_lm_apply(params, toks, cfg, device=dev)[0][
             :, prefix - 1:].float()
-    top2 = want.topk(2, dim=-1).values
     out = {}
     for broken in variants:
         p = params
@@ -3456,53 +3525,61 @@ def rwkv_handoff(cfg, params, toks, prefix, dev, variants) -> dict:
                 steps.append(step)
             torch.cuda.synchronize()
         got = torch.cat(steps, dim=1).float()
-        gap = (got - want).abs()
-        differ = got.argmax(-1) != want.argmax(-1)
-        out[broken] = {
-            "calls": 1 + t - prefix, "tokens": int(differ.numel()),
-            "tokens_differ": int(differ.sum()),
-            "margins": [round(float(v), 4)
-                        for v in (top2[..., 0] - top2[..., 1])[differ]],
-            "max_logit_gap": float(gap.max()),
-            "mean_logit_gap": float(gap.mean()),
-            "forwards_max_gap": float(gap[:, 0].max()),
-            "launches": read_counts()}
+        out[broken] = decode_reading(got, want, 1 + t - prefix)
+        out[broken]["forwards_max_gap"] = float(
+            (got[:, 0] - want[:, 0]).abs().max())
     return out
 
 
-def rwkv_gate_failures(sound, broken) -> list:
-    """(c)'s gate: the sound decode within RWKV_LOGIT_ATOL (largest gap,
-    and the top-2 margin of any token flipped) and RWKV_MEAN_ATOL (mean);
-    each broken decode outside it."""
+def decode_reading(got, want, calls) -> dict:
+    """A decode's logits ``got`` against the forward's ``want`` (float32
+    [B, T, V]): ``lockstep_agreement``'s flips, margins and largest gap,
+    the mean gap, and the kernels launched since the counts were
+    zeroed."""
+    row = lockstep_agreement(got, want)
+    row.update(calls=calls, tokens=row.pop("positions"),
+               mean_logit_gap=float((got - want).abs().mean()),
+               launches=read_counts())
+    return row
+
+
+def decode_gate_failures(sound, broken, atol, mean_atol, what) -> list:
+    """Phases 11 (c), 12 (d) and 13 (c): the sound decode (a
+    ``decode_reading``) within ``atol`` (largest gap, and the top-2
+    margin of any token flipped) and ``mean_atol`` (mean); each broken
+    decode outside it."""
     failures = []
-    if any(v > RWKV_LOGIT_ATOL for v in sound["margins"]) or \
-            sound["max_logit_gap"] > RWKV_LOGIT_ATOL or \
-            sound["mean_logit_gap"] > RWKV_MEAN_ATOL:
+    if any(v > atol for v in sound["margins"]) or \
+            sound["max_logit_gap"] > atol or \
+            sound["mean_logit_gap"] > mean_atol:
         failures.append(
-            f"forward state + decode: {sound['tokens_differ']} of "
-            f"{sound['tokens']} greedy tokens differ from the forward's "
-            f"(top-2 margins there: {sound['margins']}), largest logit gap "
-            f"{sound['max_logit_gap']} (allowed {RWKV_LOGIT_ATOL}), mean "
-            f"{sound['mean_logit_gap']} (allowed {RWKV_MEAN_ATOL})")
+            f"{what}: {sound['tokens_differ']} of {sound['tokens']} greedy "
+            f"tokens differ from the forward's (top-2 margins there: "
+            f"{sound['margins']}), largest logit gap "
+            f"{sound['max_logit_gap']} (allowed {atol}), mean "
+            f"{sound['mean_logit_gap']} (allowed {mean_atol})")
     for name, row in broken.items():
-        if row["max_logit_gap"] <= RWKV_LOGIT_ATOL and \
-                row["mean_logit_gap"] <= RWKV_MEAN_ATOL:
+        if row["max_logit_gap"] <= atol and \
+                row["mean_logit_gap"] <= mean_atol:
             failures.append(f"the decode broken by {name!r} passes the "
                             f"gate: largest {row['max_logit_gap']}, mean "
                             f"{row['mean_logit_gap']}")
     return failures
 
 
-def rwkv_loss(eng, toks, labels, logits, dev) -> tuple:
-    """Phase 11 (d), phase 12 (e): ``loss_fn`` on (b)'s batch, labels at
-    every position, against the mean NLL of the forward's ``logits``
-    (rtol 1e-6), every position counted.  Returns (row, failures)."""
+def rwkv_loss(eng, toks, labels, logits, dev, frontend=None) -> tuple:
+    """Phase 11 (d), phase 12 (e), phase 13 (d): ``loss_fn`` on (b)'s
+    batch (with its ``frontend`` frames, if any), labels at every
+    position, against the mean NLL of the forward's ``logits`` (rtol
+    1e-6), every position counted.  Returns (row, failures)."""
     import torch
     from repro_torch.models.api import loss_fn
 
+    batch = {"tokens": toks, "labels": labels}
+    if frontend is not None:
+        batch["frontend"] = frontend
     with torch.no_grad():
-        loss, metrics = loss_fn(eng.params, {"tokens": toks,
-                                             "labels": labels}, eng.cfg, dev)
+        loss, metrics = loss_fn(eng.params, batch, eng.cfg, dev)
         lf = logits.float()
         gold = torch.take_along_dim(lf, labels[..., None], dim=-1)[..., 0]
         want = float((torch.logsumexp(lf, dim=-1) - gold).mean())
@@ -3520,11 +3597,12 @@ def rwkv_loss(eng, toks, labels, logits, dev) -> tuple:
 
 
 def serve_route(cfg, params, impl, prompts, seqs, dev, per_step,
-                head) -> tuple:
-    """Phases 11 (a) and 12 (a): ServeEngine (batch 3, DENSE_MAX_LEN) on
+                head, planned=None) -> tuple:
+    """Phases 11-13 (a): ServeEngine (batch 3, DENSE_MAX_LEN) on
     ``params`` through ``impl``, ``prompts`` (more than 3: a slot is
-    reused) with DENSE_NEW_TOKENS new tokens each: on B1 ``per_step``
-    weights planned, none of them under ``ops._NO_PLAN_KEYS``, and B1
+    reused) with DENSE_NEW_TOKENS new tokens each: on a kernel route
+    ``planned`` weights planned (None: ``per_step``), none of them under
+    ``ops._NO_PLAN_KEYS``, and the route's kernel (FORWARD_ROUTES)
     launched ``per_step`` times a step and nothing else; the oracle
     nothing; every request its tokens.  On B1 also, from torch.profiler
     over one more decode step, device and B1 ms a step, kernels a step
@@ -3562,14 +3640,15 @@ def serve_route(cfg, params, impl, prompts, seqs, dev, per_step,
                         f"expected {want}")
     raw = [key for key in ops._NO_PLAN_KEYS
            if any("w_plan" in w for w in planned_under(eng.params, key))]
-    if kern and (run["planned_weights"] != per_step or raw):
+    planned = per_step if planned is None else planned
+    if kern and (run["planned_weights"] != planned or raw):
         failures.append(f"{run['planned_weights']} weights planned, "
-                        f"expected {per_step}; planned, but raw in the "
+                        f"expected {planned}; planned, but raw in the "
                         f"reference: {raw}")
     if any(len(q) != DENSE_NEW_TOKENS for q in run["tokens"]):
         failures.append(f"impl={impl}: a request did not generate "
                         f"{DENSE_NEW_TOKENS} tokens")
-    if kern:
+    if impl == "pallas_fused":
         prof, trace = profile_calls(lambda: profile_step(eng, dev))
         run["device_ms_per_step"] = prof["device_ms_per_step"]
         run["b1_ms_per_step"] = prof["kernel_ms_per_step"].get(
@@ -3652,13 +3731,13 @@ def oracle_agreement(runs, log, tag) -> tuple:
 
 
 def rwkv_config_phase(dev, log, kind) -> dict:
-    """Phase 11: rwkv6-3b whole at its published widths (32 layers,
-    d_model 2560, 40 heads x 64, d_ff 8960, an untied head of 65,536
-    rows), params from a seeded torch.Generator with the constant leaves
-    drawn (``rwkv_draw_constants``), through pallas_fused and the planes
-    oracle.  Eight weights a layer and the head are planned; the mixing
+    """Phase 11: rwkv6-3b at its published widths (d_model 2560, 40 heads
+    x 64, d_ff 8960, an untied head of 65,536 rows), params drawn whole
+    (32 layers) from a seeded torch.Generator with the constant leaves
+    drawn (``rwkv_draw_constants``) and run on the first CONFIG_DEPTH,
+    through pallas_fused and the planes oracle.  Eight weights a layer and the head are planned; the mixing
     LoRAs are float32 matmuls and mix_w2 an einsum, never planned: B1
-    launched 8 x 32 + 1 = 257 times a decode step or forward and nothing
+    launched 8 x 8 + 1 = 65 times a decode step or forward and nothing
     else, the oracle nothing.  (a) Served by ServeEngine (batch 3,
     RWKV_PROMPTS seeded prompts of 8-24 tokens, DENSE_NEW_TOKENS new
     tokens; the last request reuses a slot, whose recurrent row is
@@ -3683,7 +3762,6 @@ def rwkv_config_phase(dev, log, kind) -> dict:
                              "RWKV LoRAs and scan must run in float32")
     cfg = get_config(RWKV_ARCH)
     (b, t), p = RWKV_FORWARD_SIZE, RWKV_PREFIX
-    per_step = 8 * cfg.n_layers + 1
     free_device_memory()
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -3694,7 +3772,10 @@ def rwkv_config_phase(dev, log, kind) -> dict:
     n_params = sum(x.numel() for x in state_leaves(params))
     log(f"[rwkv] {RWKV_ARCH}: {n_params / 1e9:.3f} B params "
         f"(param_count {cfg.param_count() / 1e9:.3f} B) drawn in "
-        f"{init_s:.2f} s  ({kind})")
+        f"{init_s:.2f} s, run on the first {CONFIG_DEPTH} of "
+        f"{cfg.n_layers} layers  ({kind})")
+    cfg, params = first_layers(cfg, params, CONFIG_DEPTH)
+    per_step = 8 * cfg.n_layers + 1
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(8, 25)))
                .tolist() for _ in range(RWKV_PROMPTS)]
@@ -3735,8 +3816,9 @@ def rwkv_config_phase(dev, log, kind) -> dict:
                     failures.append(f"forward state + decode: launches "
                                     f"{row['launches']}, expected {n} a "
                                     f"call")
-            failures += rwkv_gate_failures(
-                gated[None], {k: gated[k] for k in RWKV_BROKEN})
+            failures += decode_gate_failures(
+                gated[None], {k: gated[k] for k in RWKV_BROKEN},
+                RWKV_LOGIT_ATOL, RWKV_MEAN_ATOL, "forward state + decode")
             run["state_decode"] = {
                 f"{depth}_layer": {str(k): {key: r[key] for key in (
                     "tokens_differ", "max_logit_gap", "mean_logit_gap",
@@ -3768,36 +3850,41 @@ def rwkv_config_phase(dev, log, kind) -> dict:
             "oracle": lock, **runs}
 
 
-# Phase 12: the hybrid config.  hymba-1.5b runs whole.  (b)'s batch x
-# tokens: 896 + the 128 meta tokens = 1,024 positions a row (N = 2,048 in
-# each layer, 1,792 at the head); (a)'s prompts, one more than the
-# batch's 3 slots, so that the last reuses a slot; (c)'s q / k / v
-# [B, T, H, D], the shapes a forward of 3,968 tokens with meta reaches,
-# and its tolerance: in bf16 the plain walk rounds the normalised
+# Phase 12: the hybrid config.  hymba-1.5b runs on its first
+# CONFIG_DEPTH layers at full width.  (b)'s batch x
+# tokens: 384 + the 128 meta tokens = 512 positions a row (N = 1,024 in
+# each layer, 768 at the head; cut from 896 + 128 for the script's time,
+# PERF.md §4: the scan steps position by position); (a)'s prompts, one
+# more than the batch's 3 slots, so that the last reuses a slot; (c)'s q /
+# k / v [B, T, H, D], the shapes a forward of 3,968 tokens with meta
+# reaches, and its tolerance: in bf16 the plain walk rounds the normalised
 # probabilities and the chunked one the unnormalised weights, so the two
 # sit a bf16 ulp apart (2^-7 of the largest value bounds one ulp of any
 # value; tests/test_torch_hymba.py's WALKS_TOL); (d)'s tokens a row.
 HYMBA_ARCH = "hymba-1.5b"
-HYMBA_FORWARD_SIZE = (2, 896)
+HYMBA_FORWARD_SIZE = (2, 384)
 HYMBA_PROMPTS = 4
 HYMBA_WINDOW_SHAPE = (1, 4096, 25, 64)
 HYMBA_WINDOW_RTOL = 2.0 ** -7
 HYMBA_DECODE_TOKENS = 32
-# (d)'s gate: the forward without meta against token-by-token decode,
-# largest and mean logit gap: the sound decode within it on all 32
-# layers, each broken decode outside it on the first HYMBA_BROKEN_DEPTH
-# layer(s), where the broken readings sit closest to the sound one (and
-# cost a few seconds, where 32 layers cost some 40 on a slow host).  On
-# B1 a token's projections do not depend on the others (per-token
-# quantization, integer sums), and on this seed the card gave the decode
-# the forward's logits bit for bit at every depth from 1 to 32 layers;
-# the broken decodes read 5.28-6.63 / 0.27-0.96 (SSM state or conv state
-# zeroed) and 1.47 / 0.088 at one layer, 5.61 / 0.878 at 32 (KV ring not
-# carried), measured on NVIDIA H100 80GB HBM3, 700 W (ROADMAP C11).  The
-# gate keeps phase 11's 0.3 / 0.03.
-HYMBA_LOGIT_ATOL, HYMBA_MEAN_ATOL = 0.3, 0.03
+# (d)'s gate: the forward without meta against token-by-token decode on
+# the first HYMBA_GATE_DEPTH layers, largest and mean logit gap.  The
+# decode does not give the forward's bits: gate_draws.py found the first
+# place they part at layer 0's dt_proj, a float32 matmul whose inputs
+# matched bit for bit and whose outputs at 2 positions and at 64 sit an
+# ulp apart (another sum order), and the random weights grow that with
+# depth.  At 32 layers, over six draws of tokens (phase 12's among them),
+# the sound decode (2.45-4.29 / 0.246-0.335) nears the broken ones
+# (5.72-7.13 / 0.84-0.96); at 4 layers they part on every draw: sound
+# 0.157-0.256 / 0.0107-0.0143, the SSM state zeroed 5.89-6.63 /
+# 0.597-0.718, the conv state zeroed 6.11-6.94 / 0.938-0.958, the KV ring
+# not carried 4.14-5.93 / 0.331-0.435 (NVIDIA H100 80GB HBM3, 700 W;
+# ROADMAP C11).  Four layers also catch a state handed to the wrong layer,
+# which one layer would not.  The gate sits about halfway (geometrically)
+# between the largest sound reading and the smallest broken one on each.
+HYMBA_GATE_DEPTH = 4
+HYMBA_LOGIT_ATOL, HYMBA_MEAN_ATOL = 1.0, 0.07
 HYMBA_BROKEN = ("h", "conv", "ring")
-HYMBA_BROKEN_DEPTH = 1
 
 
 def hymba_draw_constants(params, gen) -> None:
@@ -3894,7 +3981,6 @@ def hymba_handoff(cfg, params, toks, dev, variants) -> dict:
         half = H.hymba_lm_apply(params, toks[:, :t // 2], cfg, dev,
                                 with_meta=False)[0].float()
     forwards = float((half - want[:, :t // 2]).abs().max())
-    top2 = want.topk(2, dim=-1).values
     out = {}
     for broken in variants:
         zero_counts()
@@ -3915,54 +4001,22 @@ def hymba_handoff(cfg, params, toks, dev, variants) -> dict:
                 steps.append(step)
             torch.cuda.synchronize()
         got = torch.cat(steps, dim=1).float()
-        gap = (got - want).abs()
-        differ = got.argmax(-1) != want.argmax(-1)
-        out[broken] = {
-            "calls": t, "tokens": int(differ.numel()),
-            "tokens_differ": int(differ.sum()),
-            "margins": [round(float(v), 4)
-                        for v in (top2[..., 0] - top2[..., 1])[differ]],
-            "max_logit_gap": float(gap.max()),
-            "mean_logit_gap": float(gap.mean()),
-            "forwards_max_gap": forwards,
-            "launches": read_counts()}
+        out[broken] = dict(decode_reading(got, want, t),
+                           forwards_max_gap=forwards)
         del state, steps, got
     return out
 
 
-def hymba_gate_failures(sound, broken) -> list:
-    """(d)'s gate: the sound decode within HYMBA_LOGIT_ATOL (largest gap,
-    and the top-2 margin of any token flipped) and HYMBA_MEAN_ATOL
-    (mean); each broken decode outside it."""
-    failures = []
-    if any(v > HYMBA_LOGIT_ATOL for v in sound["margins"]) or \
-            sound["max_logit_gap"] > HYMBA_LOGIT_ATOL or \
-            sound["mean_logit_gap"] > HYMBA_MEAN_ATOL:
-        failures.append(
-            f"forward without meta against decode: "
-            f"{sound['tokens_differ']} of {sound['tokens']} greedy tokens "
-            f"differ (top-2 margins there: {sound['margins']}), largest "
-            f"logit gap {sound['max_logit_gap']} (allowed "
-            f"{HYMBA_LOGIT_ATOL}), mean {sound['mean_logit_gap']} (allowed "
-            f"{HYMBA_MEAN_ATOL})")
-    for name, row in broken.items():
-        if row["max_logit_gap"] <= HYMBA_LOGIT_ATOL and \
-                row["mean_logit_gap"] <= HYMBA_MEAN_ATOL:
-            failures.append(f"the decode broken by {name!r} passes the "
-                            f"gate: largest {row['max_logit_gap']}, mean "
-                            f"{row['mean_logit_gap']}")
-    return failures
-
-
 def hybrid_config_phase(dev, log, kind) -> dict:
-    """Phase 12: hymba-1.5b whole at its published widths (32 layers,
-    d_model 1600, 25 heads x 64 with 5 kv heads, d_ff 5504, ssm_state 16,
-    an untied head of 32,128 rows), params from a seeded torch.Generator
-    with the betas and d_skip drawn (``hymba_draw_constants``), through
+    """Phase 12: hymba-1.5b at its published widths (d_model 1600, 25
+    heads x 64 with 5 kv heads, d_ff 5504, ssm_state 16, an untied head
+    of 32,128 rows), params drawn whole (32 layers) from a seeded
+    torch.Generator with the betas and d_skip drawn
+    (``hymba_draw_constants``) and run on the first CONFIG_DEPTH, through
     pallas_fused and the planes oracle, TF32 off.  Nine weights a layer
     (wq, wk, wv, wo, in_proj, out_proj, gate, up, down) and the head are
     planned; x_to_dt, dt_proj and x_to_bc are float32 matmuls, never
-    planned: B1 launched 9 x 32 + 1 = 289 times a decode step or forward
+    planned: B1 launched 9 x 8 + 1 = 73 times a decode step or forward
     and nothing else, the oracle nothing.  (a) Served by ServeEngine
     (batch 3, HYMBA_PROMPTS seeded prompts of 8-24 tokens,
     DENSE_NEW_TOKENS new tokens, max_len 32; the last request reuses a
@@ -3975,9 +4029,10 @@ def hybrid_config_phase(dev, log, kind) -> dict:
     (``recurrent_forward``).  (c) ``_windowed_chunked`` against
     ``_windowed`` at HYMBA_WINDOW_SHAPE (``hymba_windows``).  (d) On B1,
     the forward without meta over HYMBA_DECODE_TOKENS tokens against
-    token-by-token decode (``hymba_handoff``): on all 32 layers within
-    HYMBA_LOGIT_ATOL / HYMBA_MEAN_ATOL, the three broken decodes outside
-    them on the first HYMBA_BROKEN_DEPTH layer(s).  (e) On B1, loss_fn on (b)'s batch (``rwkv_loss``)."""
+    token-by-token decode (``hymba_handoff``) on the first
+    HYMBA_GATE_DEPTH layers: the sound decode within HYMBA_LOGIT_ATOL /
+    HYMBA_MEAN_ATOL, the three broken decodes outside them.  (e) On B1,
+    loss_fn on (b)'s batch (``rwkv_loss``)."""
     import numpy as np
     import torch
     from repro_torch.configs.registry import get_config
@@ -3991,7 +4046,6 @@ def hybrid_config_phase(dev, log, kind) -> dict:
                              "float32")
     cfg = get_config(HYMBA_ARCH)
     b, t = HYMBA_FORWARD_SIZE
-    per_step = 9 * cfg.n_layers + 1
     free_device_memory()
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -4002,7 +4056,10 @@ def hybrid_config_phase(dev, log, kind) -> dict:
     n_params = sum(x.numel() for x in state_leaves(params))
     log(f"[hybrid] {HYMBA_ARCH}: {n_params / 1e9:.3f} B params "
         f"(param_count {cfg.param_count() / 1e9:.3f} B) drawn in "
-        f"{init_s:.2f} s  ({kind})")
+        f"{init_s:.2f} s, run on the first {CONFIG_DEPTH} of "
+        f"{cfg.n_layers} layers  ({kind})")
+    cfg, params = first_layers(cfg, params, CONFIG_DEPTH)
+    per_step = 9 * cfg.n_layers + 1
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(8, 25)))
                .tolist() for _ in range(HYMBA_PROMPTS)]
@@ -4037,29 +4094,30 @@ def hybrid_config_phase(dev, log, kind) -> dict:
             log(f"{tag} _windowed_chunked against _windowed at "
                 f"{list(HYMBA_WINDOW_SHAPE)} bf16, W = chunk = "
                 f"{H.HYMBA_WINDOW}: {json.dumps(run['windows'])}  ({kind})")
-            seq, depth = toks[:, :HYMBA_DECODE_TOKENS], HYMBA_BROKEN_DEPTH
-            sound = hymba_handoff(eng.cfg, eng.params, seq, dev, (None,))
-            broken = hymba_handoff(
+            depth = min(HYMBA_GATE_DEPTH, cfg.n_layers)
+            rows = hymba_handoff(
                 eng.cfg.replace(n_layers=depth),
-                dict(eng.params, blocks=eng.params["blocks"][:depth]), seq,
-                dev, HYMBA_BROKEN)
-            for n, row in ((per_step, sound[None]),
-                           *((9 * depth + 1, r) for r in broken.values())):
-                if row["launches"] != {name: n * row["calls"] if name == kern
-                                       else 0 for name in KERNELS}:
+                dict(eng.params, blocks=eng.params["blocks"][:depth]),
+                toks[:, :HYMBA_DECODE_TOKENS], dev, (None,) + HYMBA_BROKEN)
+            for row in rows.values():
+                if row["launches"] != {name: (9 * depth + 1) * row["calls"]
+                                       if name == kern else 0
+                                       for name in KERNELS}:
                     failures.append(f"forward without meta against decode: "
                                     f"launches {row['launches']}, expected "
-                                    f"{n} a call")
-            failures += hymba_gate_failures(sound[None], broken)
-            run["decode"] = {
-                f"{cfg.n_layers}_layers": sound[None],
-                f"{depth}_layer": {k: {key: r[key] for key in (
-                    "tokens_differ", "max_logit_gap", "mean_logit_gap",
-                    "forwards_max_gap")} for k, r in broken.items()}}
+                                    f"{9 * depth + 1} a call")
+            failures += decode_gate_failures(
+                rows[None], {k: rows[k] for k in HYMBA_BROKEN},
+                HYMBA_LOGIT_ATOL, HYMBA_MEAN_ATOL,
+                "forward without meta against decode")
+            run["decode"] = {str(k): {key: r[key] for key in (
+                "tokens_differ", "margins", "max_logit_gap",
+                "mean_logit_gap", "forwards_max_gap")}
+                for k, r in rows.items()}
             log(f"{tag} forward without meta over {HYMBA_DECODE_TOKENS} "
-                f"tokens against as many decode steps (gate: largest "
-                f"{HYMBA_LOGIT_ATOL}, mean {HYMBA_MEAN_ATOL}): "
-                f"{json.dumps(run['decode'])}  ({kind})")
+                f"tokens against as many decode steps on {depth} layer(s) "
+                f"(gate: largest {HYMBA_LOGIT_ATOL}, mean "
+                f"{HYMBA_MEAN_ATOL}): {json.dumps(run['decode'])}  ({kind})")
             run["loss"], fails = rwkv_loss(eng, toks[:, :t], toks[:, 1:t + 1],
                                            logits, dev)
             failures += fails
@@ -4079,6 +4137,346 @@ def hybrid_config_phase(dev, log, kind) -> dict:
         raise AssertionError("phase 12: " + "; ".join(failures))
     return {"layers": cfg.n_layers, "init_s": init_s, "per_step": per_step,
             "oracle": lock, **runs}
+
+
+# Phase 13: the encoder-decoder config.  seamless-m4t-medium runs whole.
+# (a)'s prompts, one more than the batch's 3 slots, so that the last
+# reuses a slot; (b)'s batch x decoder tokens, over the config's 512
+# frames a row (N = 1,024 in the encoder and the cross wk / wv, 128 in
+# the decoder's other projections and the head).  (a) and (b)'s B1-to-B2
+# gate, on the lock-step and the forward's logits: B1 applies the gelu
+# (tanh form) in its epilogue with the card's tanhf, B2's route with
+# torch's float32 ops on the same float32 products, which could part the
+# two by an ulp of an activation for 12 layers of per-token quantization
+# to grow; a greedy token may differ only where the top-2 margin is
+# within the gate.  Measured on this seed (NVIDIA H100 80GB HBM3, 700 W):
+# bit for bit, served and forward, so the gate is 0 (ROADMAP C12).
+ENCDEC_ARCH = "seamless-m4t-medium"
+ENCDEC_PROMPTS = 4
+ENCDEC_FORWARD_SIZE = (2, 64)
+ENCDEC_ACT_GAP = 0.0
+# (c): prime + teacher-forced decode against (b)'s forward on all 12
+# decoder layers, largest and mean logit gap; three broken decodes must
+# read outside the gate: the cross K/V left zero (what serving decodes
+# against), the two requests' cross K/V rows swapped, the self cache one
+# position off (each token written and read at its position + 1, beside an
+# unwritten zero slot).  Measured (NVIDIA H100 80GB HBM3, 700 W), largest /
+# mean: in this script, sound 0.260 / 0.0133 (11 of 128 tokens flipped, at
+# top-2 margins up to 0.0625); over five draws of tokens and frames, this
+# phase's among them, in a process of their own (gate_draws.py), sound
+# 0.047-0.051 / 0.0063-0.0064, zeroed 5.11-5.98 / 0.761-0.822, swapped
+# 1.00-1.25 / 0.161-0.189, shifted 2.09-2.29 / 0.083-0.090.  Where a sound
+# decode first parts from the forward, every earlier projection matched
+# bit for bit and one element of a bf16 activation sits one ulp off (the
+# self attention's output on one draw, the first norm's on another): a
+# float32 sum taken in another order at 1 position than at 64, then grown
+# by quantization steps (ROADMAP C12).  The gate sits about halfway
+# (geometrically) between the largest sound reading and the smallest
+# broken one on each: 0.5 (swapped 2.0x above it, sound 1.9x below) and
+# 0.035 (shifted 2.4x above, sound 2.6x below).
+ENCDEC_LOGIT_ATOL, ENCDEC_MEAN_ATOL = 0.5, 0.035
+ENCDEC_BROKEN = ("zero_cross", "swapped_cross", "shifted_cache")
+
+
+def encdec_per_n(params) -> tuple:
+    """The planned records of an encdec tree split by the N a forward of
+    b x t tokens over b x f frames gives them: (those at N = b x f -- the
+    encoder's and the decoder's cross wk / wv, what priming runs --,
+    those at N = b x t -- the decoder's others and the head)."""
+    wide = plan_records(params["enc_blocks"]) + [
+        blk["cross"][w]["w_plan"] for blk in params["dec_blocks"]
+        for w in ("wk", "wv")]
+    ids = {id(p) for p in wide}
+    return wide, [p for p in plan_records(params) if id(p) not in ids]
+
+
+def encdec_kernel_cases(params, dev) -> dict:
+    """Phase 13: B1 (without an activation, and with the gelu on the up
+    projection) and B2 on the served engine's own plans, at the N this
+    slice's path gives them (3 at decode, 128 and 1,024 in the forward),
+    against their plain versions (``hold_b1_b2``).  Returns kernel ->
+    calls checked (these launches are not counted as the path's)."""
+    import torch
+
+    blk = params["dec_blocks"][0]
+    cases = ((blk["mlp"]["up"]["w_plan"], (None, "gelu"), (3, 128, 1024)),
+             (blk["mlp"]["down"]["w_plan"], (None,), (3, 128, 1024)),
+             (blk["cross"]["wk"]["w_plan"], (None,), (1024,)),
+             (params["lm_head"]["w_plan"], (None,), (3, 128)))
+    gen = torch.Generator(device=dev).manual_seed(13)
+    calls = {"bw_gemm_fused": 0, "bw_gemm": 0}
+    for plan, acts, ns in cases:
+        digits, mask = plan["digits"], plan["mask"]
+        _, m_pad, k_pad = digits.shape
+        for n in ns:
+            x = torch.randn((n, k_pad), generator=gen, device=dev)
+            hold_b1_b2(digits, mask, plan["sw_rows"], None, x, acts, calls,
+                       f"M={m_pad} K={k_pad} N={n}",
+                       block_m=m_pad // mask.shape[1],
+                       block_k=k_pad // mask.shape[2], radix=4)
+    return calls
+
+
+def encdec_forward(eng, impl, toks, frames, first, dev, per_fwd) -> tuple:
+    """Phase 13 (b): ``api.forward`` of ``toks`` over ``frames`` through
+    a served engine's params: the route's kernel launched ``per_fwd``
+    times and nothing else; finite logits of the right shape; against
+    ``first`` (B1's logits, or None) within ENCDEC_ACT_GAP, greedy tokens
+    equal but where the top-2 margin is within it.  From torch.profiler
+    (``raw_profile``) over one more forward and over the priming alone
+    (the encoder and the cross wk / wv: every call at N = b x f), the
+    device ms and the kernel's ms at each N beside ``b1_bound_ms``.
+    Returns (row, logits, failures)."""
+    import torch
+    from repro_torch.models import encdec as E
+
+    cfg, failures = eng.cfg, []
+    kern = FORWARD_ROUTES[impl]
+    (b, t), f = toks.shape, frames.shape[1]
+    what = f"forward impl={impl}"
+
+    def forward():
+        return eng.api.forward(eng.params, {"tokens": toks,
+                                            "frontend": frames}, cfg, dev)[0]
+    with torch.no_grad():
+        eng.api.forward(eng.params, {"tokens": toks[:, :8],
+                                     "frontend": frames}, cfg, dev)  # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        logits = forward()
+        torch.cuda.synchronize()
+        row = {"host_ms": 1e3 * (time.perf_counter() - t0),
+               "launches": read_counts(),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        whole = raw_profile(forward)
+        prime = raw_profile(lambda: E.encdec_prime_cross(eng.params, frames,
+                                                         cfg, dev))
+    sym = SYMBOLS[kern]
+    wide, narrow = encdec_per_n(eng.params)
+    bounds = (b1_bound_ms(wide, b * f), b1_bound_ms(narrow, b * t))
+    row.update(device_ms=whole["device_ms"], kernels=whole["kernels"],
+               kernel_ms=whole["kernel_ms"][sym], b1_bound_ms=sum(bounds))
+    row["by_n"] = {
+        str(b * f): {"calls": len(wide), "kernel_ms": prime["kernel_ms"][sym],
+                     "b1_bound_ms": bounds[0]},
+        str(b * t): {"calls": len(narrow),
+                     "kernel_ms": whole["kernel_ms"][sym]
+                     - prime["kernel_ms"][sym], "b1_bound_ms": bounds[1]}}
+    want = {name: (per_fwd if name == kern else 0) for name in KERNELS}
+    if row["launches"] != want:
+        failures.append(f"{what}: launches {row['launches']}, expected "
+                        f"{want}")
+    if tuple(logits.shape) != (b, t, cfg.padded_vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        failures.append(f"{what}: bad logits {tuple(logits.shape)}")
+    if first is not None:
+        row["against_b1"] = lockstep_agreement(logits.float(), first.float())
+        failures += act_gap_failures(row["against_b1"], what)
+    return row, logits, failures
+
+
+def act_gap_failures(lock, what) -> list:
+    """B1 against B2 (``lockstep_agreement``): the largest logit gap and
+    the top-2 margin at every flipped greedy token within
+    ENCDEC_ACT_GAP."""
+    if lock["max_logit_gap"] > ENCDEC_ACT_GAP or \
+            any(m > ENCDEC_ACT_GAP for m in lock["margins"]):
+        return [f"{what}: B1 and B2 part beyond ENCDEC_ACT_GAP "
+                f"{ENCDEC_ACT_GAP}: {json.dumps(lock)}"]
+    return []
+
+
+def encdec_handoff(cfg, params, toks, frames, want, dev, variants) -> dict:
+    """Phase 13 (c): ``encdec_prime_cross`` over ``frames``, then
+    ``encdec_decode_step`` on each of ``toks`` (teacher-forced) from
+    ``init_encdec_caches``, against ``want`` (the forward's logits), once
+    a variant: None is the sound decode; "zero_cross" leaves the cross
+    K/V zero, "swapped_cross" gives each request the other's,
+    "shifted_cache" writes and reads each token at its position + 1.
+    Per variant: tokens differing, their top-2 margins, the largest and
+    the mean logit gap, the launches of the decode steps; and the
+    priming's launches."""
+    import torch
+    from repro_torch.models import encdec as E
+
+    b, t = toks.shape
+    out = {}
+    with torch.no_grad():
+        zero_counts()
+        cross = E.encdec_prime_cross(params, frames, cfg, dev)
+        torch.cuda.synchronize()
+        out["prime_launches"] = read_counts()
+    for broken in variants:
+        state = E.init_encdec_caches(cfg, b, t + 1, cfg.frontend_tokens,
+                                     device=dev)
+        if broken == "swapped_cross":
+            state["xk"], state["xv"] = (cross[k].flip(1) for k in ("xk",
+                                                                   "xv"))
+        elif broken != "zero_cross":
+            state["xk"], state["xv"] = cross["xk"], cross["xv"]
+        shift = 1 if broken == "shifted_cache" else 0
+        zero_counts()
+        steps = []
+        with torch.no_grad():
+            for i in range(t):
+                step, state = E.encdec_decode_step(
+                    params, toks[:, i:i + 1],
+                    torch.full((b,), i + shift, dtype=torch.int32,
+                               device=dev), state, cfg)
+                steps.append(step)
+            torch.cuda.synchronize()
+        out[broken] = decode_reading(torch.cat(steps, dim=1).float(), want,
+                                     t)
+        del state, steps
+    return out
+
+
+def encdec_decodes(eng, toks, frames, logits, dev, kern) -> tuple:
+    """Phase 13 (c) on all the engine's decoder layers against (b)'s
+    ``logits``, gated: the sound and the broken decodes
+    (``encdec_handoff``) and their launches (priming 6 x encoder layers +
+    2 x decoder layers, a step 8 x decoder layers + 1).  Returns (the
+    readings, failures)."""
+    cfg, failures = eng.cfg, []
+    rows = encdec_handoff(cfg, eng.params, toks, frames, logits.float(), dev,
+                          (None,) + ENCDEC_BROKEN)
+    prime = rows.pop("prime_launches")
+    n = 6 * cfg.n_encoder_layers + 2 * cfg.n_layers
+    if prime != {name: n if name == kern else 0 for name in KERNELS}:
+        failures.append(f"prime: launches {prime}, expected {n}")
+    n = 8 * cfg.n_layers + 1
+    for row in rows.values():
+        if row["launches"] != {name: n * row["calls"] if name == kern
+                               else 0 for name in KERNELS}:
+            failures.append(f"decode: launches {row['launches']}, expected "
+                            f"{n} a step")
+    failures += decode_gate_failures(
+        rows[None], {k: rows[k] for k in ENCDEC_BROKEN}, ENCDEC_LOGIT_ATOL,
+        ENCDEC_MEAN_ATOL, "prime + decode against the forward")
+    return {str(k): {key: r[key] for key in (
+        "tokens_differ", "margins", "max_logit_gap", "mean_logit_gap")}
+        for k, r in rows.items()}, failures
+
+
+def encdec_config_phase(dev, log, kind) -> dict:
+    """Phase 13: seamless-m4t-medium whole at its published widths (12
+    encoder + 12 decoder layers, d_model 1024, 16 heads x 64, d_ff 4096,
+    LayerNorm, an un-gated gelu MLP, an untied head of 256,256 rows),
+    params from a seeded torch.Generator, through pallas_fused (B1),
+    pallas (B2) and the planes oracle, TF32 off.  193 weights are
+    planned (6 an encoder layer, 10 a decoder layer, the head;
+    frontend_proj is a bf16 matmul, never planned); a decode step
+    launches the route's kernel 8 x 12 + 1 = 97 times (the cross wk / wv
+    run only when priming), a forward 193 times.  B1 and B2 are first
+    held to their plain versions on the served plans at this path's N
+    (``encdec_kernel_cases``).  (a) Served by ServeEngine (batch 3,
+    ENCDEC_PROMPTS seeded prompts of 8-24 tokens, DENSE_NEW_TOKENS new
+    tokens, max_len 32; the last request reuses a slot) against the zero
+    cross K/V, as the reference serves: B1's lock-step logits within
+    ENCDEC_ACT_GAP of B2's (``act_gap_failures``); the oracle, which
+    rounds the up projection to bf16 before the gelu (C7), logged
+    against B1 with the top-2 margin at each flip; on B1 the request in
+    the reused slot emits the tokens it emits alone on a fresh engine;
+    ms/step, device and B1 ms a step, the head's B1 launch beside its
+    bound, kernels a step, peak GB, planning seconds.  (b) The forward of
+    ENCDEC_FORWARD_SIZE seeded tokens over as many rows of 512 seeded
+    frames, on B1 and B2 (``encdec_forward``).  (c) On B1, prime +
+    teacher-forced decode against (b)'s forward (``encdec_decodes``).
+    (d) On B1, loss_fn on (b)'s batch (``rwkv_loss``)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.api import get_api
+    from repro_torch.serving.engine import state_leaves
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("phase 13: TF32 is on for float32 matmuls")
+    cfg = get_config(ENCDEC_ARCH)
+    b, t = ENCDEC_FORWARD_SIZE
+    f = cfg.frontend_tokens
+    per_step = 8 * cfg.n_layers + 1
+    per_fwd = 6 * cfg.n_encoder_layers + 10 * cfg.n_layers + 1
+    free_device_memory()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = get_api(cfg).init(gen, cfg, dev)
+    frames = torch.randn((b, f, cfg.d_model), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in state_leaves(params))
+    tag = f"[encdec] {ENCDEC_ARCH}"
+    log(f"{tag}: {n_params / 1e9:.3f} B params (param_count "
+        f"{cfg.param_count() / 1e9:.3f} B) drawn in {init_s:.2f} s  "
+        f"({kind})")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(8, 25)))
+               .tolist() for _ in range(ENCDEC_PROMPTS)]
+    rng = np.random.default_rng(11)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, t + 1)),
+                           device=dev)
+    failures, runs, seqs, first = [], {}, None, None
+    for impl in ("pallas_fused", "pallas", "planes"):
+        kern = FORWARD_ROUTES[impl]
+        eng, run, fails = serve_route(cfg, params, impl, prompts, seqs, dev,
+                                      per_step, "lm_head", planned=per_fwd)
+        failures += fails
+        if impl == "pallas_fused":
+            seqs = [q + o for q, o in zip(prompts, run["tokens"])]
+            checked = encdec_kernel_cases(eng.params, dev)
+            log(f"{tag}: B1 (gelu on up) and B2 on the served plans at N "
+                f"3, 128, 1024 equal their plain versions: "
+                f"{json.dumps(checked)} calls")
+        shown = {k: v for k, v in run.items()
+                 if k not in ("tokens", "lockstep")}
+        log(f"{tag} impl={impl} served: {json.dumps(shown)}  ({kind})")
+        if kern:
+            run["forward"], logits, fails = encdec_forward(
+                eng, impl, toks[:, :t], frames, first, dev, per_fwd)
+            failures += fails
+            log(f"{tag} forward impl={impl} batch {b} x {t} tokens over "
+                f"{b} x {f} frames: {json.dumps(run['forward'])}  ({kind})")
+        if impl == "pallas_fused":
+            first = logits
+            run["decode"], fails = encdec_decodes(eng, toks[:, :t], frames,
+                                                  logits, dev, kern)
+            failures += fails
+            log(f"{tag} prime + {t} teacher-forced decode steps against the "
+                f"forward on {cfg.n_layers} decoder layers (gate: largest "
+                f"{ENCDEC_LOGIT_ATOL}, mean {ENCDEC_MEAN_ATOL}): "
+                f"{json.dumps(run['decode'])}  ({kind})")
+            run["loss"], fails = rwkv_loss(eng, toks[:, :t], toks[:, 1:t + 1],
+                                           logits, dev, frontend=frames)
+            failures += fails
+            log(f"{tag} loss_fn, labels at every position: "
+                f"{json.dumps(run['loss'])}  ({kind})")
+        if kern:
+            del logits
+        del eng
+        if impl == "pallas_fused":
+            failures += fresh_slot_check(cfg, params, impl, prompts, run,
+                                         dev, per_step, log, tag)
+        runs[impl] = run
+    del first
+    kernel = runs["pallas_fused"]
+    b1_lock = kernel.pop("lockstep")
+    lock_b2 = lockstep_agreement(b1_lock, runs["pallas"].pop("lockstep"))
+    lock_b2["served_tokens_equal"] = \
+        runs["pallas"]["tokens"] == kernel["tokens"]
+    log(f"{tag}: pallas (B2) against pallas_fused (B1) in lock step (gate "
+        f"ENCDEC_ACT_GAP {ENCDEC_ACT_GAP}): {json.dumps(lock_b2)}")
+    failures += act_gap_failures(lock_b2, "served, in lock step")
+    lock = lockstep_agreement(b1_lock, runs["planes"].pop("lockstep"))
+    lock["served_tokens_equal"] = runs["planes"]["tokens"] == kernel["tokens"]
+    log(f"{tag}: the planes oracle against pallas_fused in lock step "
+        f"(logged, not gated: C7): {json.dumps(lock)}")
+    del params, frames, b1_lock
+    free_device_memory()
+    if failures:
+        raise AssertionError("phase 13: " + "; ".join(failures))
+    return {"layers": cfg.n_layers, "init_s": init_s, "per_step": per_step,
+            "per_forward": per_fwd, "oracle": lock, "b2": lock_b2, **runs}
 
 
 def main(argv=None) -> int:
@@ -4124,6 +4522,7 @@ def main(argv=None) -> int:
         raise AssertionError(f"ptxas reports spills: {spills}")
 
     # -- 3. kernels against their plain versions -----------------------------
+    t0 = time.perf_counter()
     log("[kernels] bit-exact and timed against the plain versions")
     floor = floor_ms()
     log(f"  floor_ms {floor:.5f}: cuda_ms of an empty launch")
@@ -4134,6 +4533,7 @@ def main(argv=None) -> int:
         err.update(errs)
     log(f"  B1-B4 walk edges: {walk_cases(dev, log)} cases")
     dense_edge_cases(dev, log)
+    log(f"[kernels] phase 3 in {time.perf_counter() - t0:.1f} s")
 
     # -- 4. the path at full width -------------------------------------------
     cfg = CONFIG
@@ -4201,7 +4601,7 @@ def main(argv=None) -> int:
                                  f"{unfused['launches']}, expected {expect}")
     log("[path] planes=3: pallas_fused, pallas and planes emit the same "
         "tokens; planes=2: pallas_fused, pallas_sparse and pallas_pipelined"
-        " emit the same tokens")
+        f" emit the same tokens; phase 4 in {time.perf_counter() - t0:.1f} s")
 
     # -- 5. the kernel-level API on every weight of the model ----------------
     t0 = time.perf_counter()
@@ -4233,9 +4633,8 @@ def main(argv=None) -> int:
 
     # -- 6. the serving stack: tiers, the async server, failover -----------
     t0 = time.perf_counter()
-    srv = server_phase(cfg.replace(n_layers=SERVER_DEPTH),
-                       dict(params, blocks=params["blocks"][:SERVER_DEPTH]),
-                       dev, log, kind)
+    srv = server_phase(*first_layers(cfg, params, SERVER_DEPTH), dev, log,
+                       kind)
     log(f"[server] phase 6 in {time.perf_counter() - t0:.1f} s; B1 "
         f"launches in the virtual run {srv['virtual_launches']['bw_gemm_fused']}"
         f"; peak {srv['server_peak_gb']:.2f} GB  ({kind})")
@@ -4297,7 +4696,20 @@ def main(argv=None) -> int:
         f"launches served {hybrid_launches}; peak GB "
         f"{round(served['peak_gb'], 2)} (B1), "
         f"{round(hybrid['planes']['peak_gb'], 2)} (oracle)  ({kind})")
-    log(f"[total] phases 2-12 in {time.perf_counter() - started:.1f} s")
+
+    # -- 13. the encoder-decoder config --------------------------------------
+    t0 = time.perf_counter()
+    encdec = encdec_config_phase(dev, log, kind)
+    served = encdec["pallas_fused"]
+    encdec_launches = served["launches"]["bw_gemm_fused"] + \
+        served["fresh"]["launches"]["bw_gemm_fused"]
+    encdec_b2_launches = encdec["pallas"]["launches"]["bw_gemm"]
+    log(f"[encdec] phase 13 in {time.perf_counter() - t0:.1f} s; B1 "
+        f"launches served {encdec_launches}, B2 {encdec_b2_launches}; peak "
+        f"GB {round(served['peak_gb'], 2)} (B1), "
+        f"{round(encdec['pallas']['peak_gb'], 2)} (B2), "
+        f"{round(encdec['planes']['peak_gb'], 2)} (oracle)  ({kind})")
+    log(f"[total] phases 2-13 in {time.perf_counter() - started:.1f} s")
 
     # -- the kernels line ----------------------------------------------------
     replaces = {"bw_gemm_fused": "src/repro/kernels/bw_gemm.py:215",
@@ -4356,7 +4768,9 @@ def main(argv=None) -> int:
             count = launches[name]["stats"]["launches"][name]
             if name == "bw_gemm_fused":
                 count += sum(moe_launches.values()) + vlm_launches + \
-                    rwkv_launches + hybrid_launches
+                    rwkv_launches + hybrid_launches + encdec_launches
+            elif name == "bw_gemm":
+                count += encdec_b2_launches
         elif name in unfused:
             count = unfused[name]["stats"]["unfused"]["launches"][name]
         else:

@@ -1,6 +1,7 @@
 """Config schema: the model architecture fields the port's dense, MoE,
-VLM, RWKV and hybrid families read, and the four input-shape cells, with
-the reference's names and defaults (``repro.configs.base``)."""
+VLM, RWKV, hybrid and encoder-decoder families read, and the four
+input-shape cells, with the reference's names and defaults
+(``repro.configs.base``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -19,7 +20,7 @@ def pad_vocab(v: int, multiple: int = 128) -> int:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | moe | vlm | rwkv | hybrid
+    family: str                    # dense | moe | vlm | rwkv | hybrid | encdec
     n_layers: int
     d_model: int
     n_heads: int
@@ -41,7 +42,10 @@ class ModelConfig:
     ssm_state: int = 0             # the SSM's state size n a channel
     ssm_expand: int = 2            # d_inner = ssm_expand * d_model
     ssm_conv: int = 4              # the causal conv's width K
-    # modality frontend (the VLM family's stub: precomputed embeddings)
+    # --- encoder-decoder ---
+    n_encoder_layers: int = 0      # encoder blocks (n_layers: decoder's)
+    # modality frontend (the VLM and encoder-decoder families' stub:
+    # precomputed embeddings)
     frontend: Optional[str] = None  # 'vision' | 'audio'
     frontend_tokens: int = 0        # patches / frames per example
     qkv_bias: bool = False
@@ -80,7 +84,9 @@ class ModelConfig:
         """Approximate parameter count (embeddings + blocks), as the
         reference counts it: an RWKV block's mixing stands at 6 d x d
         (no LoRA, decay or norm counted); a hybrid block counts its
-        attention and MLP only (no SSM branch, no meta tokens)."""
+        attention and MLP only (no SSM branch, no meta tokens); an
+        encoder-decoder counts n_layers + n_encoder_layers such blocks
+        (no cross-attention, no frontend projection)."""
         d, hd = self.d_model, self.resolved_head_dim
         attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) \
             + self.n_heads * hd * d
@@ -90,7 +96,7 @@ class ModelConfig:
         if self.n_experts:
             mlp = mlp * self.n_experts + d * self.n_experts
         emb = self.padded_vocab * d * (1 if self.tie_embeddings else 2)
-        return self.n_layers * (attn + mlp) + emb
+        return (self.n_layers + self.n_encoder_layers) * (attn + mlp) + emb
 
     def active_param_count(self) -> int:
         """Parameters a token reaches: k experts' MLPs in place of all."""

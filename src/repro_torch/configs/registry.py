@@ -1,8 +1,8 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig (full or smoke).
 
-The port has the reference's RWKV, four dense, two MoE, one VLM and one
-hybrid architectures so far, in the reference's order; the
-encoder-decoder one follows with its model family.
+The port has every architecture of the reference's registry, in its
+order: the RWKV, four dense, two MoE, one VLM, one encoder-decoder and
+one hybrid architectures.
 """
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ from typing import List
 
 from . import (granite_34b, grok_1_314b, hymba_1_5b, minicpm_2b,
                nemotron_4_15b, olmoe_1b_7b, phi_3_vision_4_2b,
-               qwen1_5_110b, rwkv6_3b)
+               qwen1_5_110b, rwkv6_3b, seamless_m4t_medium)
 from .base import ModelConfig
 
 _MODULES = {
@@ -18,6 +18,7 @@ _MODULES = {
     "olmoe-1b-7b": olmoe_1b_7b,
     "grok-1-314b": grok_1_314b,
     "phi-3-vision-4.2b": phi_3_vision_4_2b,
+    "seamless-m4t-medium": seamless_m4t_medium,
     "minicpm-2b": minicpm_2b,
     "nemotron-4-15b": nemotron_4_15b,
     "qwen1.5-110b": qwen1_5_110b,

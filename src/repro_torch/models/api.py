@@ -9,16 +9,19 @@ loops are architecture-agnostic:
     decode_step(params, tokens, pos, state, cfg) -> (logits [B,1,V], state)
 
 ``batch`` is a dict: {"tokens": int [B,T], "labels": int [B,T]} plus
-"frontend": [B,F,d_model] for the VLM family (precomputed patch
-embeddings, the modality stub).  The port has the dense, MoE, VLM, RWKV
-and hybrid families so far.  The first three run
-``models/transformer.py`` (an MoE block swaps its MLP for the experts; a
-VLM's frontend overwrites the prompt's first F positions); the RWKV
-family runs ``models/rwkv6.py``, whose decode state is a recurrence, the
-same size at any ``max_len``; the hybrid family runs ``models/hymba.py``,
-whose decode state is a KV ring of the attention window and the SSM's
-recurrence, also the same size at any ``max_len``.  The
-encoder-decoder family is not ported: ``get_api`` raises for it.
+"frontend": [B,F,d_model] for the VLM and encoder-decoder families
+(precomputed patch or frame embeddings, the modality stub).  ``get_api``
+takes every family of the reference.  The dense, MoE and VLM families
+run ``models/transformer.py`` (an MoE block swaps its MLP for the
+experts; a VLM's frontend overwrites the prompt's first F positions);
+the RWKV family runs ``models/rwkv6.py``, whose decode state is a
+recurrence, the same size at any ``max_len``; the hybrid family runs
+``models/hymba.py``, whose decode state is a KV ring of the attention
+window and the SSM's recurrence, also the same size at any ``max_len``;
+the encoder-decoder family runs ``models/encdec.py``, whose forward
+encodes the frames and whose decode state holds the decoder's KV cache
+and each layer's cross K/V over ``cfg.frontend_tokens`` frames (zeros
+until the caller primes them with ``encdec_prime_cross``).
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from typing import Callable, Dict
 
 import torch
 
+from . import encdec as E
 from . import hymba as H
 from . import rwkv6 as R
 from . import transformer as T
@@ -75,6 +79,17 @@ def _hymba_init_decode(cfg, batch, max_len, device):
     return H.init_hymba_caches(cfg, batch, getattr(torch, cfg.dtype), device)
 
 
+def _encdec_forward(params, batch, cfg, device=None):
+    # a ValueError, where the reference's batch["frontend"] is a KeyError
+    return E.encdec_apply(params, batch["tokens"], cfg, device,
+                          frontend_embeds=batch.get("frontend"))
+
+
+def _encdec_init_decode(cfg, batch, max_len, device):
+    return E.init_encdec_caches(cfg, batch, max_len, cfg.frontend_tokens,
+                                getattr(torch, cfg.dtype), device)
+
+
 _FAMILIES: Dict[str, ModelAPI] = {
     fam: ModelAPI(fam, T.lm_init, _lm_forward, _lm_init_decode,
                   T.lm_decode_step)
@@ -83,13 +98,15 @@ _FAMILIES["rwkv"] = ModelAPI("rwkv", R.rwkv_lm_init, _rwkv_forward,
                              _rwkv_init_decode, R.rwkv_lm_decode_step)
 _FAMILIES["hybrid"] = ModelAPI("hybrid", H.hymba_lm_init, _hymba_forward,
                                _hymba_init_decode, H.hymba_lm_decode_step)
+_FAMILIES["encdec"] = ModelAPI("encdec", E.encdec_init, _encdec_forward,
+                               _encdec_init_decode, E.encdec_decode_step)
 
 
 def get_api(cfg) -> ModelAPI:
     try:
         return _FAMILIES[cfg.family]
     except KeyError:
-        raise ValueError(f"model family {cfg.family!r} is not ported "
+        raise ValueError(f"unknown model family {cfg.family!r} "
                          f"(have {sorted(_FAMILIES)})") from None
 
 
@@ -100,8 +117,9 @@ def loss_fn(params, batch, cfg, device=None):
     Returns (loss, metrics dict).  ``labels`` are already shifted by the
     data pipeline (labels[t] = tokens[t+1]); positions with label < 0 are
     masked, and on a ``vlm`` config (only there, as in the reference) the
-    first ``frontend_len(cfg)`` positions too.  Forward only: the port has
-    no training step yet.
+    first ``frontend_len(cfg)`` positions too: an ``encdec`` config's
+    frames feed the encoder, so every label >= 0 counts.  Forward only:
+    the port has no training step yet.
     """
     logits, aux = get_api(cfg).forward(params, batch, cfg, device)
     labels = torch.as_tensor(batch["labels"], device=logits.device).long()

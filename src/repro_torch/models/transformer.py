@@ -106,7 +106,8 @@ def block_decode(p, x, cfg, ck, cv, pos, dtype=torch.bfloat16):
 def lm_init(gen: torch.Generator, cfg, device) -> dict:
     """Random float32 params from ``gen``, on ``device``."""
     if cfg.family not in ("dense", "moe", "vlm"):
-        raise ValueError(f"family {cfg.family!r} is not ported yet")
+        raise ValueError(f"lm_init builds the dense, moe and vlm families; "
+                         f"family {cfg.family!r} has its own init")
     params = {
         "embed": L.embed_init(gen, cfg.padded_vocab, cfg.d_model, device),
         "blocks": [block_init(gen, cfg, device)
@@ -144,6 +145,17 @@ def _run_blocks(params, x, cfg, positions, dtype):
     return x, aux
 
 
+def _on_device(params, device) -> torch.device:
+    """The device an entry point runs on (``resolve_device``), which must
+    hold the params."""
+    dev = resolve_device(device)
+    table = params["embed"]["table"]
+    if table.device.type != dev.type or \
+            dev.index not in (None, table.device.index):
+        raise ValueError(f"params are on {table.device}, not on {dev}")
+    return dev
+
+
 def _embed_inputs(params, tokens, cfg, device, frontend_embeds=None):
     """(x [B, T, d], positions [B, T], dtype) for a prompt, on device.
 
@@ -154,11 +166,7 @@ def _embed_inputs(params, tokens, cfg, device, frontend_embeds=None):
     embeddings; positions stay 0..T-1.  Without one, ``frontend_embeds``
     is not read, as in the reference.
     """
-    dev = resolve_device(device)
-    table = params["embed"]["table"]
-    if table.device.type != dev.type or \
-            dev.index not in (None, table.device.index):
-        raise ValueError(f"params are on {table.device}, not on {dev}")
+    dev = _on_device(params, device)
     dtype = getattr(torch, cfg.dtype)
     tokens = torch.as_tensor(tokens, device=dev)
     x = L.embed_apply(params["embed"], tokens, dtype)

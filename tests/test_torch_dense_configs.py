@@ -1,8 +1,9 @@
 """The port's dense configs (granite-34b, nemotron-4-15b, qwen1.5-110b
 beside minicpm-2b) against the reference's: their fields, parameter
-counts, registry order and input-shape cells (the MoE, VLM, RWKV and
-hybrid configs' fields and counts too), and decode through the port's ``ServeEngine`` against
-the reference's on each new config's smoke size.
+counts, registry order and input-shape cells (the MoE, VLM, RWKV,
+hybrid and encoder-decoder configs' fields and counts too), and decode
+through the port's ``ServeEngine`` against the reference's on each new
+config's smoke size.
 
 Decode runs the reference in a subprocess with XLA's excess precision
 off (test_torch_forward.py's ``run_reference``), and the port with its
@@ -94,7 +95,8 @@ def shared_fields(cfg):
 def test_config_matches_reference(arch, smoke):
     """Every field the port's config has equals the reference's, and so
     do the parameter counts; a field the port lacks is one neither the
-    dense, the MoE, the VLM, the RWKV nor the hybrid forward reads."""
+    dense, the MoE, the VLM, the RWKV, the hybrid nor the
+    encoder-decoder forward reads."""
     tcfg, jcfg = get_config(arch, smoke=smoke), jget_config(arch,
                                                             smoke=smoke)
     names = shared_fields(tcfg)
@@ -114,16 +116,17 @@ def test_config_matches_reference(arch, smoke):
                           "capacity_factor", "moe_shard",
                           "moe_dispatch_groups", "router_aux_coef",
                           "rwkv_head_size", "ssm_state", "ssm_expand",
-                          "ssm_conv", "subquadratic"}
+                          "ssm_conv", "subquadratic", "n_encoder_layers"}
 
 
 def test_registry_follows_reference_order():
     assert ARCHS == [a for a in JARCHS if a in ARCHS]
     assert set(NEW_ARCHS) | {"minicpm-2b", "olmoe-1b-7b", "grok-1-314b",
-                             "phi-3-vision-4.2b", "rwkv6-3b",
-                             "hymba-1.5b"} == set(ARCHS)
+                             "phi-3-vision-4.2b", "rwkv6-3b", "hymba-1.5b",
+                             "seamless-m4t-medium"} == set(ARCHS) == \
+        set(JARCHS)
     with pytest.raises(ValueError, match="unknown arch"):
-        get_config("seamless-m4t-medium")
+        get_config("seamless-m4t-large")
     assert get_config("qwen1.5-110b", smoke=True, n_layers=3).n_layers == 3
 
 

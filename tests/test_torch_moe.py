@@ -505,19 +505,17 @@ def test_launcher_serves_each_moe_arch(arch, capsys):
 
 
 def test_other_families_still_refused():
-    """get_api takes the dense, MoE, VLM, RWKV and hybrid families and
-    the transformer's lm_init the first three; the encoder-decoder
-    family is not ported, and the RWKV and hybrid families have their
-    own inits (``models/rwkv6.py``, ``models/hymba.py``)."""
+    """get_api takes every family: the dense, MoE, VLM, RWKV, hybrid and
+    encoder-decoder ones; the transformer's lm_init builds the first
+    three, and refuses the others, which have their own inits
+    (``models/rwkv6.py``, ``models/hymba.py``, ``models/encdec.py``)."""
     cfg = get_config("olmoe-1b-7b", smoke=True)
     assert get_api(cfg).family == "moe"
-    assert get_api(cfg.replace(family="vlm")).family == "vlm"
-    assert get_api(cfg.replace(family="rwkv")).family == "rwkv"
-    assert get_api(cfg.replace(family="hybrid")).family == "hybrid"
+    for family in ("vlm", "rwkv", "hybrid", "encdec"):
+        assert get_api(cfg.replace(family=family)).family == family
+    with pytest.raises(ValueError, match="unknown model family"):
+        get_api(cfg.replace(family="conv"))
     for family in ("rwkv", "hybrid", "encdec"):
-        other = cfg.replace(family=family)
-        if family == "encdec":
-            with pytest.raises(ValueError, match="not ported"):
-                get_api(other)
-        with pytest.raises(ValueError, match="not ported"):
-            TT.lm_init(torch.Generator().manual_seed(0), other, "cpu")
+        with pytest.raises(ValueError, match="has its own init"):
+            TT.lm_init(torch.Generator().manual_seed(0),
+                       cfg.replace(family=family), "cpu")
